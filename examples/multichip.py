@@ -1,13 +1,12 @@
 """Multi-device vLGP: fit over a ('data', 'model') mesh.
 
-Runs on real multi-chip hardware as-is; for a laptop/CI demo it creates 8
-virtual CPU devices (the TPU-native analog of a fake backend — see
-SURVEY.md §4).
+Runs on the default devices (e.g. four GPUs of one host); fails when there
+are fewer than the mesh needs.  ``--virtual-cpu`` runs the same fit on
+virtual CPU devices instead, for a laptop/CI demo.
 
-Run: python examples/multichip.py [--data 4 --model 2]
+Run: python examples/multichip.py [--data 2 --model 2] [--virtual-cpu]
 """
 import argparse
-import os
 import pathlib
 import sys
 
@@ -16,38 +15,27 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--data", type=int, default=4, help="data-parallel axis size")
+    p.add_argument("--data", type=int, default=2, help="data-parallel axis size")
     p.add_argument("--model", type=int, default=2, help="channel-parallel axis size")
-    p.add_argument("--virtual-cpu", action="store_true", default=None,
-                   help="force an 8-device virtual CPU mesh")
+    p.add_argument("--virtual-cpu", action="store_true",
+                   help="run on virtual CPU devices")
     args = p.parse_args()
 
     n_needed = args.data * args.model
-    flags = os.environ.get("XLA_FLAGS", "")
-    if "host_platform_device_count" not in flags:
-        os.environ["XLA_FLAGS"] = (
-            flags + f" --xla_force_host_platform_device_count={max(8, n_needed)}"
-        ).strip()
 
     import jax
 
-    # Decide the platform BEFORE any device query if virtual CPU was asked
-    # for (a backend, once initialized, can't be switched away from);
-    # otherwise probe the real devices and fall back to the virtual CPU
-    # mesh when the host has too few chips.
     if args.virtual_cpu:
+        # decided before any device query: a backend, once initialized,
+        # can't be switched away from
         jax.config.update("jax_platforms", "cpu")
-        devs = jax.devices("cpu")
-    else:
-        devs = jax.devices()
-        if len(devs) < n_needed:
-            try:
-                jax.config.update("jax_platforms", "cpu")
-            except Exception:
-                pass  # already initialized; explicit cpu devices below
-            devs = jax.devices("cpu")
+        jax.config.update("jax_num_cpu_devices", max(8, n_needed))
+    devs = jax.devices()
     if len(devs) < n_needed:
-        raise SystemExit(f"need {n_needed} devices, have {len(devs)}")
+        raise SystemExit(
+            f"need {n_needed} devices, {devs[0].platform} has {len(devs)}; "
+            "pass --virtual-cpu for a virtual CPU mesh"
+        )
 
     import numpy as np
 
@@ -67,8 +55,7 @@ def main():
 
     mesh = make_mesh((args.data, args.model), devices=devs[:n_needed])
     print(f"mesh: {dict(mesh.shape)} over {mesh.devices.size} devices")
-    with jax.default_device(devs[0]):  # keep setup ops on the mesh platform
-        result = fit_sharded(trials, zdim, mesh=mesh, verbose=True, max_iter=8)
+    result = fit_sharded(trials, zdim, mesh=mesh, verbose=True, max_iter=8)
 
     mu = np.concatenate([t["mu"] for t in result.trials])
     zt = np.concatenate(zs)

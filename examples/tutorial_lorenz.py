@@ -22,10 +22,9 @@ import vlgp_tpu
 from vlgp_tpu.simulation import lorenz, spike
 from vlgp_tpu.utils.misc import rotate
 
-# remote-attached TPUs pay minutes per cold compile; persist executables
-vlgp_tpu.enable_compilation_cache(
-    str(pathlib.Path(__file__).resolve().parents[1] / ".jax_cache")
-)
+# persist compiled executables across runs ($JAX_COMPILATION_CACHE_DIR,
+# else <repo>/.jax_cache)
+vlgp_tpu.enable_compilation_cache()
 
 
 def main():

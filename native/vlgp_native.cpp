@@ -3,7 +3,7 @@
 // The reference does all IO-side preprocessing in Python loops
 // (spike-time binning at vlgp/util.py:515-538; per-trial packing implied
 // by the list-of-dicts layout).  These are host-side, memory-bound jobs
-// that sit on the critical path between storage and the TPU: done in C++
+// that sit on the critical path between storage and the device: done in C++
 // with a thread pool they stop mattering.
 //
 // Exposed via a plain C ABI for ctypes (no pybind11 in this image).

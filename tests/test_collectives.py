@@ -19,7 +19,6 @@ import pytest
 
 from vlgp_tpu.config import default_config, make_params
 from vlgp_tpu.data import cut_trials, pack_trials
-from vlgp_tpu.models.driver import xinv_zeros
 from vlgp_tpu.models.gp import make_cholesky
 from vlgp_tpu.models.vlgp import update_w
 from vlgp_tpu.parallel.mesh import make_mesh, pad_segments, replicate, shard_data
@@ -69,8 +68,7 @@ def _lowered_em_step(shape):
     seg_s = shard_data(pad_segments(segments, shape[0]), mesh)
     params_s, G_s = replicate((params, G), mesh)
     step = sharded_em_step(mesh, config, seg_s, params_s)
-    xv = xinv_zeros(seg_s, G_s)
-    return _counts(step.lower(seg_s, params_s, G_s, xv, 0).as_text())
+    return _counts(step.lower(seg_s, params_s, G_s, 0).as_text())
 
 
 def test_collective_count_independent_of_mesh_size():
@@ -108,9 +106,8 @@ def test_scan_block_adds_no_collectives():
     mesh = make_mesh((4, 2))
     seg_s = shard_data(pad_segments(segments, 4), mesh)
     params_s, G_s = replicate((params, G), mesh)
-    xv = xinv_zeros(seg_s, G_s)
     texts = []
     for k in (1, 3):
         em = sharded_em_scan(mesh, config, seg_s, params_s, k)
-        texts.append(_counts(em.lower(seg_s, params_s, G_s, xv, 0).as_text()))
+        texts.append(_counts(em.lower(seg_s, params_s, G_s, 0).as_text()))
     assert texts[0] == texts[1], texts

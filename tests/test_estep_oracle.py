@@ -5,6 +5,7 @@ the low-rank Woodbury identities directly against dense solves.
 """
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from vlgp_tpu.config import default_config, make_params
 from vlgp_tpu.data import pack_trials
@@ -107,3 +108,35 @@ def test_estep_masked_equals_short_trial():
     mu_short = run(T_short)
     mu_padded = run(T_long)
     assert np.abs(mu_short - mu_padded).max() < 5e-4
+
+
+@pytest.mark.parametrize("estep_tol", [0.0, 3e-3])
+def test_estep_f32_matches_f64(estep_tol):
+    """The f32 E-step (the card's dtype) follows the float64 one, with a
+    fixed sweep count and with the default adaptive exit."""
+    from vlgp_tpu.data import cut_trials
+
+    rng = np.random.default_rng(4)
+    T, Y, Z = 120, 8, 2
+    a = rng.normal(size=(Z, Y)) * 0.5
+    z = np.column_stack([np.sin(np.linspace(0, 6, T)),
+                         np.cos(np.linspace(0, 6, T))])
+    trials = [{"y": rng.poisson(np.exp(z @ a - 1.0)).astype(float),
+               "mu": rng.normal(size=(T, Z)) * 0.1} for _ in range(3)]
+
+    def run(dtype):
+        params = make_params(Y, Z, 1, "poisson", a=a, b=np.full((1, Y), -1.0),
+                             omega=np.full(Z, 1e-2), dtype=jnp.dtype(dtype))
+        config = default_config(dtype=dtype, Eniter=6, estep_tol=estep_tol,
+                                window=30)
+        seg = cut_trials(pack_trials(trials, Z, 1, dtype=np.dtype(dtype)),
+                         config.window, seed=0)
+        G = make_cholesky(seg.nbin, params, rank=24)
+        seg = update_w(seg, params, config)
+        return estep(seg, params, G, config)
+
+    out64 = run("float64")
+    out32 = run("float32")
+    mu64 = np.asarray(out64.mu)
+    assert np.abs(np.asarray(out32.mu) - mu64).max() < 1e-3 * np.abs(mu64).max()
+    assert np.abs(np.asarray(out32.v) - np.asarray(out64.v)).max() < 1e-3

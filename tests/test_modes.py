@@ -302,7 +302,7 @@ def test_hyper_interval_validation_and_closing_hstep():
     trials, _ = _poisson_trials(ntrial=3, length=80, ydim=10)
     # max_iter=4, interval=2: in-loop H-steps at it 0 and 2, exit at it=3
     # (skipped) -> the closing H-step fires in all three driver modes and
-    # they agree exactly (same phase_h executable, same carried xinv)
+    # they agree exactly (same phase_h executable)
     kw = dict(dtype="float64", max_iter=4, min_iter=4, hyper_interval=2)
     r_host = vlgp_tpu.fit(trials, 2, **kw)
     assert r_host.runtime.get("final_hstep") is True

@@ -11,7 +11,7 @@ import pytest
 
 from vlgp_tpu.config import default_config, make_params
 from vlgp_tpu.data import cut_trials, pack_trials
-from vlgp_tpu.models.driver import make_em_step, xinv_zeros
+from vlgp_tpu.models.driver import make_em_step
 from vlgp_tpu.models.gp import make_cholesky
 from vlgp_tpu.models.vlgp import update_w
 from vlgp_tpu.parallel.mesh import make_mesh, pad_segments, replicate, shard_data
@@ -61,10 +61,9 @@ def test_sharded_em_step_matches_single_device(shape):
     seg_s = shard_data(seg_s, mesh)
     params_s, G_s = replicate((params, G), mesh)
     step = sharded_em_step(mesh, config, seg_s, params_s)
-    xv = xinv_zeros(seg_s, G_s)
     # it=0: first EM iteration, so the hyper_interval cond takes the
     # H-step branch — matching the it=None single-device reference call
-    d2, p2, G2, n2, _ = step(seg_s, params_s, G_s, xv, 0)
+    d2, p2, G2, n2 = step(seg_s, params_s, G_s, 0)
 
     assert np.abs(np.asarray(p1.a) - np.asarray(p2.a)).max() < 1e-8
     assert np.abs(np.asarray(p1.b) - np.asarray(p2.b)).max() < 1e-8
@@ -99,6 +98,6 @@ def test_masked_pad_segments_are_inert():
     params_s, G_s = replicate((params, G), mesh)
     step_a = sharded_em_step(mesh, config, seg_a, params_s)
     step_b = sharded_em_step(mesh, config, seg_b, params_s)
-    _, pa, _, _, _ = step_a(seg_a, params_s, G_s, xinv_zeros(seg_a, G_s), 0)
-    _, pb, _, _, _ = step_b(seg_b, params_s, G_s, xinv_zeros(seg_b, G_s), 0)
+    _, pa, _, _ = step_a(seg_a, params_s, G_s, 0)
+    _, pb, _, _ = step_b(seg_b, params_s, G_s, 0)
     assert np.abs(np.asarray(pa.a) - np.asarray(pb.a)).max() < 1e-9

@@ -1,10 +1,13 @@
-"""ops/spd tests: Newton-Schulz inverse (forced on CPU), warm start +
-fallback, Pallas kernel in interpreter mode, XLA reference path."""
+"""ops/spd tests: the exact batched inverse (Cholesky + triangular solve),
+its wrappers' shapes, and the Gram route of inv_one_plus_gram against a
+dense float64 oracle, in float32 (the card's dtype) and float64."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vlgp_tpu.ops.spd import inv_one_plus_psd, spd_inverse, spd_solve
+from vlgp_tpu.ops.spd import (
+    inv_one_plus_gram, inv_one_plus_psd, spd_inverse, spd_solve,
+)
 
 
 def _psd(batch, R, scale=1.0, seed=0):
@@ -13,81 +16,23 @@ def _psd(batch, R, scale=1.0, seed=0):
     return jnp.asarray(np.einsum("...rk,...qk->...rq", G, G) * scale)
 
 
-def test_ns_matches_exact():
-    A = _psd((6,), 32, 0.3)
-    X_ns = np.asarray(inv_one_plus_psd(A, iters=16, force="ns"))
-    X_ref = np.linalg.inv(np.asarray(A) + np.eye(32))
-    assert np.abs(X_ns - X_ref).max() < 1e-4
-
-
-def test_ns_handles_large_eigenvalues():
-    A = _psd((4,), 24, 50.0)  # lambda_max up to ~1e3
-    X_ns = np.asarray(inv_one_plus_psd(A, iters=20, force="ns"))
-    M = np.asarray(A) + np.eye(24)
-    resid = np.einsum("brk,bkq->brq", M, X_ns) - np.eye(24)
-    assert np.abs(resid).max() < 1e-3
-
-
-def test_ns_warm_start_refines():
-    A = _psd((5,), 16, 0.5, seed=1)
-    X_exact = jnp.asarray(np.linalg.inv(np.asarray(A) + np.eye(16)))
-    # perturb the system slightly; warm start from the old inverse
-    A2 = A * 1.02
-    X_warm = np.asarray(
-        inv_one_plus_psd(A2, iters=16, force="ns", warm=X_exact, warm_iters=4)
-    )
-    X_ref = np.linalg.inv(np.asarray(A2) + np.eye(16))
-    assert np.abs(X_warm - X_ref).max() < 1e-4
-
-
-def test_ns_warm_fallback_on_garbage():
-    """A useless warm start must trigger the cold fallback, not diverge."""
-    A = _psd((3,), 16, 0.5, seed=2)
-    garbage = jnp.ones_like(A) * 100.0
-    X = np.asarray(
-        inv_one_plus_psd(A, iters=16, force="ns", warm=garbage, warm_iters=3)
-    )
-    X_ref = np.linalg.inv(np.asarray(A) + np.eye(16))
-    assert np.isfinite(X).all()
-    assert np.abs(X - X_ref).max() < 1e-4
-
-
-def test_ns_cold_escalates_on_huge_eigenvalues():
-    """ADVICE-r1 regression: a fixed-count cold NS start on an extreme
-    system (lambda_max ~4e4, where 16 iterations leave a ~0.1 error) must
-    residual-check and escalate instead of silently returning garbage."""
-    A = _psd((3,), 16, 1e3, seed=7)  # lambda_max ~4e4
-    X = np.asarray(inv_one_plus_psd(A, iters=16, force="ns"))
-    M = np.asarray(A, dtype=np.float64) + np.eye(16)
+@pytest.mark.parametrize("scale", [0.3, 50.0, 1e3])
+def test_inv_one_plus_psd_matches_inverse(scale):
+    """Up to lambda_max ~4e4 (scale 1e3): the f32 relative error stays at
+    eps_f32 * cond(I + A)."""
+    A = _psd((4,), 16, scale, seed=7)
+    M = np.asarray(A, np.float64) + np.eye(16)
     X_ref = np.linalg.inv(M)
+    X = np.asarray(inv_one_plus_psd(A), np.float64)
     assert np.isfinite(X).all()
-    # un-escalated 16-iteration NS leaves max error ~0.107 here
-    assert np.abs(X - X_ref).max() < 5e-3
+    cond = np.linalg.cond(M).max()
+    assert np.abs(X - X_ref).max() / np.abs(X_ref).max() < 10 * 6e-8 * cond
 
 
-def test_auto_dispatch_runs_on_cpu():
-    """force=None must pick the platform's path at lowering time
-    (lax.platform_dependent) — on CPU that is the exact-Cholesky route."""
-    A = _psd((4,), 16, 0.5, seed=8)
-    X = np.asarray(inv_one_plus_psd(A))
-    X_ref = np.linalg.inv(np.asarray(A) + np.eye(16))
-    assert np.abs(X - X_ref).max() < 1e-4
-    B = A + jnp.eye(16)
+def test_spd_inverse_matches_inverse():
+    B = _psd((4,), 16, 0.5, seed=8) + jnp.eye(16)
     Xi = np.asarray(spd_inverse(B))
     assert np.abs(Xi - np.linalg.inv(np.asarray(B))).max() < 1e-4
-
-
-def test_xla_path_exact():
-    A = _psd((4,), 20, 1.0, seed=3)
-    X = np.asarray(inv_one_plus_psd(A, force="xla"))
-    X_ref = np.linalg.inv(np.asarray(A) + np.eye(20))
-    assert np.abs(X - X_ref).max() < 1e-4
-
-
-def test_pallas_interpret_inverse():
-    A = _psd((5,), 40, 0.2, seed=4) + 0.5 * jnp.eye(40)
-    X = np.asarray(spd_inverse(A, force="interpret"))
-    assert np.abs(X - np.linalg.inv(np.asarray(A))).max() < 1e-3
 
 
 def test_spd_solve():
@@ -99,124 +44,115 @@ def test_spd_solve():
     assert np.abs(x - ref).max() < 1e-4
 
 
-def test_packed_probe_skip_interpret():
-    """Fused probe+refine kernel (r3): converged blocks pass the warm start
-    through; drifted blocks refine — per grid block, in one kernel."""
-    from vlgp_tpu.ops.spd import _ns_packed_pallas, _packed_geometry
-
-    R = 40
-    # must match the tiles the probe_skip path actually uses (spd.py)
-    _, _, per_block, _ = _packed_geometry(96, R, tiles=12)
-    B = 2 * per_block  # two grid blocks
-    A = np.asarray(_psd((B,), R, 0.3, seed=9), np.float32)
-    X_exact = np.linalg.inv(A + np.eye(R, dtype=np.float32)).astype(np.float32)
-
-    # block 1 carries the exact inverse (skips), block 2 garbage (refines)
-    x0 = X_exact.copy()
-    x0[per_block:] = X_exact[per_block:] * 0.5
-    X, resid = _ns_packed_pallas(
-        jnp.asarray(A), iters=10, x0=jnp.asarray(x0), probe_skip=True,
-        interpret=True,
-    )
-    X = np.asarray(X)
-    assert float(resid) < 1e-2
-    # converged block passed through unchanged
-    np.testing.assert_array_equal(X[:per_block], x0[:per_block])
-    # drifted block was refined to the true inverse
-    assert np.abs(X[per_block:] - X_exact[per_block:]).max() < 1e-3
-
-
-def test_packed_probe_skip_all_converged_interpret():
-    from vlgp_tpu.ops.spd import _ns_packed_pallas
-
-    R = 16
-    A = np.asarray(_psd((6,), R, 0.5, seed=10), np.float32)
-    X_exact = np.linalg.inv(A + np.eye(R, dtype=np.float32)).astype(np.float32)
-    X, resid = _ns_packed_pallas(
-        jnp.asarray(A), iters=8, x0=jnp.asarray(X_exact), probe_skip=True,
-        interpret=True,
-    )
-    assert float(resid) < 1e-2
-    np.testing.assert_array_equal(np.asarray(X), X_exact)
+@pytest.mark.parametrize("batch", [(), (3,), (2, 3)])
+def test_inv_one_plus_psd_batch_shapes(batch):
+    """Any leading batch dims, including none."""
+    A = _psd(batch, 10, 0.5, seed=9)
+    X = inv_one_plus_psd(A)
+    assert X.shape == batch + (10, 10)
+    ref = np.linalg.inv(np.asarray(A, np.float64) + np.eye(10))
+    assert np.abs(np.asarray(X) - ref).max() < 1e-5
 
 
 # ---------------------------------------------------------------------------
-# Fused Gram + NS kernel (round 3): X = (I + G'diag(w)G)^{-1} with the Gram
-# built in-kernel and v = diag(G X G') emitted from VMEM.
+# Gram route: X = (I + G'diag(w)G)^{-1} and v = diag(G X G') from the
+# einsum-built Gram, against a float64 oracle.
 # ---------------------------------------------------------------------------
 
+DTYPES = ("float32", "float64")
+TOL = {"float32": 1e-5, "float64": 1e-11}
 
-def _gram_problem(Z=2, S=5, T=12, R=8, seed=11, scale=1.0):
+
+def _gram_problem(Z=2, S=5, T=12, R=8, seed=11, scale=1.0, dtype="float32"):
     rng = np.random.default_rng(seed)
-    G = rng.normal(size=(Z, T, R)).astype(np.float32) * 0.5
-    w = (rng.uniform(size=(Z, S, T)) * scale).astype(np.float32)
-    A = np.einsum("ztr,zst,ztq->zsrq", G, w, G)
-    X_ref = np.linalg.inv(A + np.eye(R, dtype=np.float32))
-    v_ref = np.einsum("ztr,zsrq,ztq->zst", G, X_ref, G)
-    return jnp.asarray(G), jnp.asarray(w), X_ref, v_ref
+    G = (rng.normal(size=(Z, T, R)) * 0.5).astype(dtype)
+    w = (rng.uniform(size=(Z, S, T)) * scale).astype(dtype)
+    return G, w
 
 
-def test_gram_fused_cold_interpret():
-    from vlgp_tpu.ops.spd import inv_one_plus_gram
-
-    G, w, X_ref, v_ref = _gram_problem()
-    X, v = inv_one_plus_gram(G, w, iters=16, force="interpret", want_v=True)
-    assert np.abs(np.asarray(X) - X_ref).max() < 1e-4
-    assert np.abs(np.asarray(v) - v_ref).max() < 1e-4
-
-
-def test_gram_fused_matches_plain_fallback():
-    """The CPU/f64 fallback path must equal the pre-fusion einsum route."""
-    from vlgp_tpu.ops.spd import inv_one_plus_gram, inv_one_plus_psd
-
-    G, w, X_ref, v_ref = _gram_problem(seed=12)
-    X, v = inv_one_plus_gram(G, w, iters=16, force="xla", want_v=True)
-    A = jnp.einsum("ztr,zst,ztq->zsrq", G, w, G)
-    X_plain = inv_one_plus_psd(A, iters=16, force="xla")
-    np.testing.assert_array_equal(np.asarray(X), np.asarray(X_plain))
-    assert np.abs(np.asarray(X) - X_ref).max() < 1e-4
-    assert np.abs(np.asarray(v) - v_ref).max() < 1e-4
+def _oracle(G, w):
+    G64 = np.asarray(G, np.float64)
+    w64 = np.asarray(w, np.float64)
+    R = G64.shape[-1]
+    X = np.linalg.inv(np.einsum("ztr,zst,ztq->zsrq", G64, w64, G64)
+                      + np.eye(R))
+    return X, np.einsum("ztr,zsrq,ztq->zst", G64, X, G64)
 
 
-def test_gram_fused_warm_probe_accepts_interpret():
-    """A converged carried inverse must pass the probe unchanged, with v
-    computed from the carry."""
-    from vlgp_tpu.ops.spd import inv_one_plus_gram
-
-    G, w, X_ref, v_ref = _gram_problem(seed=13)
-    X, v = inv_one_plus_gram(
-        G, w, iters=16, force="interpret", warm=jnp.asarray(X_ref),
-        warm_iters=4, want_v=True,
-    )
-    np.testing.assert_array_equal(np.asarray(X), X_ref.astype(np.float32))
-    assert np.abs(np.asarray(v) - v_ref).max() < 1e-4
+def _gram(G, w, **kw):
+    return inv_one_plus_gram(jnp.asarray(G), jnp.asarray(w), **kw)
 
 
-def test_gram_fused_warm_garbage_falls_back_interpret():
-    from vlgp_tpu.ops.spd import inv_one_plus_gram
-
-    G, w, X_ref, v_ref = _gram_problem(seed=14)
-    garbage = jnp.ones_like(jnp.asarray(X_ref)) * 50.0
-    X, v = inv_one_plus_gram(
-        G, w, iters=16, force="interpret", warm=garbage, warm_iters=2,
-        want_v=True,
-    )
-    assert np.isfinite(np.asarray(X)).all()
-    assert np.abs(np.asarray(X) - X_ref).max() < 1e-4
-    assert np.abs(np.asarray(v) - v_ref).max() < 1e-4
+def _err(x, ref):
+    return float(np.abs(np.asarray(x, np.float64) - ref).max())
 
 
-def test_gram_fused_tail_masking_interpret():
-    """S not divisible by the block size: the tail block's invalid slots
-    must not corrupt the residual or v."""
-    from vlgp_tpu.ops.spd import _ns_gram_pallas, _packed_geometry
+def test_gram_route_equals_inverse_of_gram():
+    """inv_one_plus_gram is inv_one_plus_psd of the einsum Gram."""
+    G, w = _gram_problem(seed=12)
+    X, v = _gram(G, w, want_v=True)
+    A = jnp.einsum("ztr,zst,ztq->zsrq", G, w, G,
+                   precision="highest")
+    np.testing.assert_array_equal(np.asarray(X),
+                                  np.asarray(inv_one_plus_psd(A)))
+    X_ref, v_ref = _oracle(G, w)
+    assert _err(X, X_ref) < 1e-5
+    assert _err(v, v_ref) < 1e-5
 
-    R = 8
-    _, _, per_block, _ = _packed_geometry(1, R, tiles=16)
-    S = per_block + 3  # one full block + a mostly-invalid tail block
-    G, w, X_ref, v_ref = _gram_problem(Z=1, S=S, T=10, R=R, seed=15)
-    X, resid, v = _ns_gram_pallas(G, w, iters=16, want_v=True,
-                                  interpret=True)
-    assert float(resid) < 1e-2
-    assert np.abs(np.asarray(X) - X_ref).max() < 1e-3
-    assert np.abs(np.asarray(v) - v_ref).max() < 1e-3
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gram_route_cold(dtype):
+    G, w = _gram_problem(Z=3, S=6, T=20, R=10, seed=20, scale=2.0,
+                         dtype=dtype)
+    X_ref, _ = _oracle(G, w)
+    X = _gram(G, w)
+    assert X.dtype == jnp.dtype(dtype)
+    assert _err(X, X_ref) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gram_route_want_v(dtype):
+    G, w = _gram_problem(seed=21, dtype=dtype)
+    X_ref, v_ref = _oracle(G, w)
+    X, v = _gram(G, w, want_v=True)
+    assert _err(X, X_ref) < TOL[dtype]
+    assert _err(v, v_ref) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gram_route_odd_segment_count(dtype):
+    """S and T prime: nothing is tiled or padded to a multiple."""
+    G, w = _gram_problem(Z=2, S=7, T=13, R=5, seed=25, dtype=dtype)
+    X_ref, v_ref = _oracle(G, w)
+    X, v = _gram(G, w, want_v=True)
+    assert X.shape == (2, 7, 5, 5) and v.shape == (2, 7, 13)
+    assert _err(X, X_ref) < TOL[dtype]
+    assert _err(v, v_ref) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gram_route_zero_masked_segments(dtype):
+    """Ragged padding: an all-masked segment has w = 0, so X = I and
+    v = diag(G G') exactly, and its neighbours are unaffected."""
+    G, w = _gram_problem(Z=2, S=6, T=12, R=8, seed=26, dtype=dtype)
+    w = w.copy()
+    w[:, 2] = 0.0
+    w[:, 4, 5:] = 0.0  # a short trial's tail
+    X_ref, v_ref = _oracle(G, w)
+    X, v = _gram(G, w, want_v=True)
+    np.testing.assert_allclose(np.asarray(X)[:, 2],
+                               np.broadcast_to(np.eye(8), (2, 8, 8)),
+                               atol=1e-6)
+    assert _err(X, X_ref) < TOL[dtype]
+    assert _err(v, v_ref) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gram_route_rank50(dtype):
+    """The default factor rank (50), beyond the window-segment rank."""
+    G, w = _gram_problem(Z=2, S=4, T=60, R=50, seed=27, scale=0.5,
+                         dtype=dtype)
+    X_ref, v_ref = _oracle(G, w)
+    X, v = _gram(G, w, want_v=True)
+    assert _err(X, X_ref) < 10 * TOL[dtype]
+    assert _err(v, v_ref) / np.abs(v_ref).max() < 10 * TOL[dtype]

@@ -1,8 +1,7 @@
-"""Quick A/B: EM iterations/sec on the flagship config (real TPU).
+"""Quick A/B: EM iterations/sec on the flagship config.
 
-Measures only the scanned-EM per-iteration time (the BENCH headline), no
-convergence scoring.  Env knobs under test (e.g. VLGP_GRAM_FUSED) must be
-set before launch.  Usage:
+Measures only the scanned-EM per-iteration time, no convergence scoring,
+on the default JAX device (printed first).  Usage:
 
     python tools/ab_em.py [label] [config_key=json_value ...]
 
@@ -21,14 +20,11 @@ sys.path.insert(0, str(ROOT))
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", str(ROOT / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-sys.path.insert(0, str(ROOT))
 import bench  # noqa: E402
+import vlgp_tpu  # noqa: E402
 from vlgp_tpu.config import default_config, make_params  # noqa: E402
 from vlgp_tpu.data import cut_trials, pack_trials  # noqa: E402
-from vlgp_tpu.models.driver import _scan_em_jit, xinv_zeros  # noqa: E402
+from vlgp_tpu.models.driver import _scan_em_jit  # noqa: E402
 from vlgp_tpu.models.gp import effective_rank, make_cholesky  # noqa: E402
 from vlgp_tpu.models.vlgp import update_w  # noqa: E402
 
@@ -45,6 +41,9 @@ def main(iters=10, reps=4):
     # harness knobs (not Config fields): scan-block length and repetitions
     iters = int(kw.pop("iters", iters))
     reps = int(kw.pop("reps", reps))
+    vlgp_tpu.enable_compilation_cache()
+    dev = jax.devices()[0]
+    print(f"device: {dev.platform} {dev.device_kind} x{len(jax.devices())}")
     trials, a, zt = bench.make_workload()
     config = default_config(**kw)
     params = make_params(
@@ -60,16 +59,15 @@ def main(iters=10, reps=4):
     seg = update_w(seg, params, config)
     em = _scan_em_jit(config, iters)
 
-    xv0 = xinv_zeros(seg, G)
     t0 = time.perf_counter()
-    d, p, g, xv, _ = em(seg, params, G, xv0)
+    d, p, g, _ = em(seg, params, G)
     float(jnp.sum(p.a))
     print(f"[{label}] compile+first: {time.perf_counter() - t0:.1f}s")
 
     best = float("inf")
     for rep in range(reps):
         t0 = time.perf_counter()
-        dd, pp, gg, _, _ = em(d, p, g, xv)
+        dd, pp, gg, _ = em(d, p, g)
         checksum = float(jnp.sum(pp.a)) + float(jnp.sum(dd.mu))
         assert np.isfinite(checksum)
         dt = (time.perf_counter() - t0) / iters

@@ -18,14 +18,14 @@ cells = [
     md(
         "# vLGP tutorial — recovering Lorenz dynamics from spikes\n"
         "\n"
-        "TPU-native port of the reference tutorial "
+        "JAX port of the reference tutorial "
         "(`notebook/tutorial.ipynb` cells 9–27 in catniplab/vlgp): simulate "
         "a population of Poisson neurons driven by a 3-D Lorenz latent "
         "trajectory, fit a 3-factor vLGP model, and compare the inferred "
         "posterior mean to the ground truth after least-squares alignment "
         "(the latent space is only identified up to a linear map).\n"
         "\n"
-        "Runs on whatever `jax.devices()` provides — a TPU when attached, "
+        "Runs on whatever `jax.devices()` provides — a GPU when attached, "
         "CPU otherwise."
     ),
     code(
@@ -91,9 +91,7 @@ cells = [
     md(
         "## Fit\n"
         "`vlgp_tpu.fit` runs the full reference pipeline (FA init → "
-        "segment VEM → full-length inference) as batched XLA computations; "
-        "on TPU the Woodbury systems go through the packed Newton–Schulz "
-        "Pallas kernel."
+        "segment VEM → full-length inference) as batched XLA computations."
     ),
     code(
         "import time\n"

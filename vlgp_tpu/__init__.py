@@ -1,4 +1,4 @@
-"""vlgp_tpu — TPU-native variational Latent Gaussian Process framework.
+"""vlgp_tpu — variational Latent Gaussian Process framework in JAX.
 
 A from-scratch JAX/XLA rebuild of the capabilities of catniplab/vlgp
 (Zhao & Park, Neural Computation 2017): recover low-dimensional smooth
@@ -12,6 +12,8 @@ and a data x model device mesh (``vlgp_tpu.parallel``) instead of no
 parallelism at all.  See SURVEY.md for the reference layer map.
 """
 import logging as _logging
+import os as _os
+import pathlib as _pathlib
 
 from .api import FitResult, fastfit, fit, map2vi, resume, sample_posterior, transform
 from .config import Config, Params, default_config, make_params
@@ -44,6 +46,8 @@ __all__ = [
     "simulation",
     "evaluation",
     "model_selection",
+    "compilation_cache_dir",
+    "enable_compilation_cache",
 ]
 
 __version__ = "0.1.0"
@@ -54,16 +58,33 @@ __version__ = "0.1.0"
 logger = _logging.getLogger("vlgp_tpu")
 
 
-def enable_compilation_cache(path: str = ".jax_cache") -> None:
-    """Persist compiled XLA executables across processes.
+def compilation_cache_dir() -> str:
+    """Where :func:`enable_compilation_cache` keeps compiled executables:
+    ``$JAX_COMPILATION_CACHE_DIR`` when set, else ``<repo>/.jax_cache``.
 
-    Worth enabling on remote-attached TPUs where each compile pays a
-    round-trip to a compile service.
+    The fallback is a fixed absolute path (built from this file's location,
+    not the working directory), so every process of a checkout finds the
+    executables an earlier one stored.
+    """
+    env = _os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    return str(_pathlib.Path(__file__).resolve().parent.parent / ".jax_cache")
+
+
+def enable_compilation_cache(path: str | None = None) -> str:
+    """Persist compiled XLA executables across processes; returns the
+    directory used (``path``, else :func:`compilation_cache_dir`).
+
+    A flagship fit compiles a few dozen executables; with the cache a
+    second process at the same shapes loads them instead of recompiling.
     """
     import jax
 
+    path = compilation_cache_dir() if path is None else path
     jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return path
 
 
 def enable_file_logging(path: str = "vlgp_tpu.log", level=_logging.INFO) -> None:

@@ -187,8 +187,8 @@ def fit(
 
     trials: list of dicts with ``y`` (length, ydim); optional ``x``, ``mu``.
     Unequal lengths are padded and masked.  ``fused=True`` runs each EM
-    iteration as a single jitted graph (fastest on remote-attached devices);
-    ``block=k`` with ``fused`` scans k iterations per device dispatch.
+    iteration as a single jitted graph; ``block=k`` with ``fused`` scans
+    k iterations per device dispatch.
 
     Passing ``path=...`` snapshots the parameters every
     ``saving_interval`` seconds during VEM and writes a final restorable

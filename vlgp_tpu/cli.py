@@ -45,7 +45,7 @@ def _load_trials(path: str):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        prog="vlgp_tpu", description="variational Latent Gaussian Process (TPU-native)"
+        prog="vlgp_tpu", description="variational Latent Gaussian Process"
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 

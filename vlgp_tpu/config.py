@@ -4,7 +4,7 @@ The reference threads three mutable dicts ``(trials, params, config)`` through
 every function and *silently discards* unknown config kwargs
 (``vlgp/preprocess.py:84-112``).  Here config is a frozen dataclass used as a
 static jit argument (unknown keys raise), and model parameters are an
-immutable flax pytree (``vlgp/preprocess.py:49-81`` for the defaults).
+immutable dataclass pytree (``vlgp/preprocess.py:49-81`` for the defaults).
 """
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import jax.numpy as jnp
-from flax import struct
+
+from .pytree import PyTreeNode, static_field
 
 __all__ = ["Config", "Params", "default_config"]
 
@@ -43,34 +44,23 @@ class Config:
     # sweeps always run).  Eniter stays the hard cap.  The reference runs
     # its Eniter=25 sweeps unconditionally (core.py:65; its `tol` is dead
     # there), but the sweep fixed point reaches its noise floor far
-    # earlier — measured flagship profile: relative |dmu| plateaus at
-    # ~6e-4 by sweep 6 and never improves, so ~3/4 of the fixed-count
-    # E-step is noise recirculation.  Default 3e-3 (r5): vs 1e-3 it is
-    # +3% EM throughput (24.2 vs 23.5 it/s flagship) at the SAME ~30
-    # iterations to recovery R^2 0.95 and statistically tied quality —
-    # all four scored draws beat the reference (head2head 0.9254 vs
-    # 0.9212; indep seeds 1-3: 0.9326/0.9258/0.9140 vs
-    # 0.9247/0.9240/0.9113).  The exit fires once per-sweep progress is
-    # an order of magnitude above the 6e-4 noise floor, so the skipped
-    # sweeps carry no signal.  0 disables (reference-matched fixed
-    # count; exact-parity tests use this).
+    # earlier: on the flagship workload the relative |dmu| plateaus at
+    # ~6e-4 by sweep 6.  At 3e-3 the fit needs the same ~30 iterations to
+    # recovery R^2 0.95 as at 1e-3, and the self-tuned quality draws all
+    # stay at or above the reference (head2head 0.9254 vs 0.9212; indep
+    # seeds 1-3: 0.9326/0.9258/0.9140 vs 0.9247/0.9240/0.9113).  0
+    # disables (reference-matched fixed count; exact-parity tests use
+    # this).
     estep_tol: float = 3e-3
     # same for the M-step Newton loop: exit once |da| <= mstep_tol * |a|
     # AND |db| <= mstep_tol * |b| — the exact check the reference's
-    # authors wrote and commented out (core.py:248-249).  Measured
-    # flagship profile: the relative update hits its ~2e-3 noise floor by
-    # Newton iteration 4 on the first EM iteration and sits there from
-    # iteration 1 afterwards.  Mniter stays the hard cap; 0 disables.
-    # Looser values were measured (r5) and REJECTED on quality grounds:
-    # 1e-2 is +7% EM throughput (25.9 vs 24.2 it/s) with unchanged
-    # bench convergence, but its ~1e-3-scale posterior perturbation
-    # flips one H-step omega basin per scoring set — alone it drops
-    # indep seed 2 to 0.9199 (ref 0.9240); combined with
-    # ns_warm_iters=2 (itself +5%, clean in isolation) it drops seed 3
-    # to 0.9105 (ref 0.9113) — while the shipped default passes all
-    # four draws.  The ±0.004 basin chaos band (STATUS.md round 3)
-    # bounds what marginal speed knobs can be validated to the
-    # beats-the-reference-everywhere standard.
+    # authors wrote and commented out (core.py:248-249).  The relative
+    # update hits its ~2e-3 noise floor within a few Newton iterations.
+    # Mniter stays the hard cap; 0 disables.  1e-2 was rejected on
+    # quality: its ~1e-3-scale posterior perturbation flips one H-step
+    # omega basin per scoring set (indep seed 2 drops to 0.9199, ref
+    # 0.9240).  The ±0.004 basin band of the self-tuned quality draws
+    # bounds what such knobs can be validated to.
     mstep_tol: float = 5e-3
     # update clipping (core.py:91, 200, 218)
     da_bound: float = 5.0
@@ -81,35 +71,29 @@ class Config:
     # trial segmentation window (util.py:457-499)
     window: int = 50
     # H-step optimizer: fixed-iteration golden section on log-omega,
-    # run as an Aitken-extrapolated fixed point (three searches with the
-    # posterior covariance rebuilt at the running omega between them).
-    # hyper_polish adds one parabolic-interpolation refinement after the
-    # shrinks; hyper_iters=12 + polish reproduces the golden-24 fixed
-    # points to ~1% (f64 oracle) with half the sequential Cholesky chain,
-    # but measured BENCH-NEUTRAL on this host (7.77 vs 7.75 it/s — the
-    # H-step's cost is not dominated by the shrink count), so the
-    # reference-matched 24-shrink default stands.
+    # run as an Aitken-extrapolated fixed point (two or three searches
+    # with the posterior covariance rebuilt at the running omega between
+    # them).  hyper_polish adds one parabolic-interpolation refinement
+    # after the shrinks; hyper_iters=12 + polish reproduces the golden-24
+    # fixed points to ~1% (f64 oracle); the reference-matched 24-shrink
+    # default stands.
     hyper_iters: int = 24
     hyper_polish: bool = False
     # number of posterior-refreshing searches per H-step call:
     # 2 (default) = two fixed-point refinements + Aitken, accepting the
     # trust-region-clamped extrapolation directly; 3 = add a polishing
     # search at the extrapolated point (one more sequential
-    # grid+golden+Cholesky chain per EM iteration).  Re-scored r4 with the
-    # hyper_trust cap in place, 2 matches 3 across every measured draw and
-    # is +31% EM throughput: reference tutorial head-to-head 0.9247 (2)
-    # vs 0.9252 (3) vs reference 0.9212; independent draws (seed: 2 / 3 /
-    # ref) 1: 0.9297/0.929/0.9247, 2: 0.9201/0.9227/0.9240,
-    # 3: 0.9111/0.9081/0.9113 — both configs at reference parity +-0.004
-    # off-benchmark, and the pre-trust-region collapse mode (a latent
-    # teleported to the omega floor, 0.9209 on seed 1) is gone.
+    # grid+golden+Cholesky chain per EM iteration).  With the hyper_trust
+    # cap in place, 2 matches 3 on every scored draw to within the ±0.004
+    # basin band: reference tutorial head-to-head 0.9247 (2) vs 0.9252 (3)
+    # vs reference 0.9212; independent draws (seed: 2 / 3 / ref)
+    # 1: 0.9297/0.929/0.9247, 2: 0.9201/0.9227/0.9240,
+    # 3: 0.9111/0.9081/0.9113.
     hyper_refines: int = 2
     # run the H-step only on every k-th EM iteration (iteration indices
     # 0, k, 2k, ...; the reference runs it every iteration,
-    # core.py:329-339).  Measured on the flagship config the H-step is
-    # ~32 of the 54 ms EM iteration (58%: ab_em Hstep=false 44.4 it/s vs
-    # 18.5 at interval=1), while the omega fixed point it solves moves
-    # slowly across EM iterations — most of those solves refine an
+    # core.py:329-339).  The omega fixed point it solves moves slowly
+    # across EM iterations, so most every-iteration solves refine an
     # already-converged value against a barely-changed posterior.  On
     # skipped iterations omega/sigma and the prior factors are carried
     # unchanged (a uniform lax.cond, so the scan/SPMD paths stay
@@ -118,21 +102,13 @@ class Config:
     # H-step against the final posterior (runtime["final_hstep"] = True),
     # so the returned omega/sigma are never stale — the reference always
     # ends an iteration with its H-step (core.py:329-339).
-    # Default 2: +26% EM throughput over every-iteration (23.3 vs 18.4
-    # it/s flagship), and quality-scored ABOVE the reference on every
-    # measured draw at BOTH 2 and 4 (r5, self-tuned R^2,
-    # ours-at-4 / ours-at-2 / ours-at-1 / ref):
-    # tutorial head-to-head 0.9251/0.9264/0.9247/0.9212; independent
-    # draws seed 1: 0.9319/0.9335/0.9297/0.9247,
-    # seed 2: 0.9248/0.9253/0.9201/0.9240,
-    # seed 3: 0.9167/0.9121/0.9111/0.9113 — a sparser H-step cadence
-    # lets each omega update see a more-converged posterior, which is
-    # mildly MORE robust, not less.  4 is faster still (25.6 it/s,
-    # bench quality 0.9511) but needs ~50 EM iterations to reach
-    # recovery R^2 0.95 on the flagship workload where 2 needs ~30
-    # (compute-to-quality 1.96 s vs 1.28 s), so 2 is the balanced
-    # default and 4 the validated max-throughput knob for fixed-budget
-    # fits.  1 = reference-matched every-iteration behavior
+    # Default 2: self-tuned R^2 at 4 / 2 / 1 / reference: tutorial
+    # head-to-head 0.9251/0.9264/0.9247/0.9212; independent draws seed 1:
+    # 0.9319/0.9335/0.9297/0.9247, seed 2: 0.9248/0.9253/0.9201/0.9240,
+    # seed 3: 0.9167/0.9121/0.9111/0.9113 — at or above the reference
+    # within the ±0.004 basin band on every draw.  4 needs ~50 EM
+    # iterations to recovery R^2 0.95 on the flagship workload where 2
+    # needs ~30.  1 = reference-matched every-iteration behavior
     # (exact-parity tests pin this).
     hyper_interval: int = 2
     # per-latent trust region on the accepted Aitken jump when the
@@ -186,11 +162,6 @@ class Config:
     # vs 0.9243, reference 0.9212).  Set False for reference-matched
     # fixed-amplitude behavior.
     hyper_learn_sigma: bool = True
-    # Newton-Schulz iteration counts for the TPU batched-inverse path
-    # (ops/spd.py): cold start, and warm-started refinements inside the
-    # E-step sweep loop
-    ns_iters: int = 16
-    ns_warm_iters: int = 4
     # omega initialization when not user-supplied: "staggered" spreads the
     # latents log-uniformly over the SMOOTH side of the omega box
     # ([1.2*lo, 4*lo]) — latents are exchangeable, so this breaks the
@@ -260,7 +231,7 @@ def default_config(**kwargs) -> Config:
     return Config(**kwargs)
 
 
-class Params(struct.PyTreeNode):
+class Params(PyTreeNode):
     """Model parameters (reference ``params`` dict, ``vlgp/preprocess.py:49-81``).
 
     Immutable pytree; dims are implied by array shapes:
@@ -289,17 +260,17 @@ class Params(struct.PyTreeNode):
     # weak #3).  None (the default everywhere outside the sharded path)
     # means all channels are active and costs nothing.
     active: Optional[jnp.ndarray] = None
-    # scalar model constants (treated as leaves so they ride the pytree)
-    gp_noise: float = struct.field(pytree_node=False, default=1e-4)
-    dt: float = struct.field(pytree_node=False, default=1.0)
-    rank: int = struct.field(pytree_node=False, default=50)
+    # scalar model constants (static: part of the tree structure)
+    gp_noise: float = static_field(default=1e-4)
+    dt: float = static_field(default=1.0)
+    rank: int = static_field(default=50)
     # static summary of the per-channel likelihood mix: "poisson",
     # "gaussian", or "mixed".  Known at trace time, so the M-step can skip
     # the entire unused update family (the all-Poisson flagship otherwise
     # spends ~1/3 of its M-step bandwidth computing Gaussian closed forms
     # that the final per-channel select throws away).  "mixed" is always
     # safe (both families computed, per-channel select applied).
-    likelihood_kind: str = struct.field(pytree_node=False, default="mixed")
+    likelihood_kind: str = static_field(default="mixed")
 
     @property
     def zdim(self) -> int:

@@ -20,12 +20,13 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+
+from .pytree import PyTreeNode
 
 __all__ = ["TrialSet", "pack_trials", "cut_trials", "scatter_segments", "unpack_trials"]
 
 
-class TrialSet(struct.PyTreeNode):
+class TrialSet(PyTreeNode):
     """Padded batch of trials (or segments).
 
     y     (N, T, ydim)        observations
@@ -111,8 +112,7 @@ def pack_trials(
 
     zeros = np.zeros((n, tmax, zdim), dtype)
     # host-side numpy: the single host->device transfer happens at the
-    # first jitted call (device round-trips here are pure overhead on a
-    # remote-attached TPU)
+    # first jitted call
     return TrialSet(
         y=y,
         x=x,

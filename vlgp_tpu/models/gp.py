@@ -111,11 +111,11 @@ def _chol_inv(L):
     n = L.shape[-1]
     eye = jnp.broadcast_to(jnp.eye(n, dtype=L.dtype), L.shape)
     inv_l = lax.linalg.triangular_solve(L, eye, left_side=True, lower=True)
-    return jnp.einsum("...ki,...kj->...ij", inv_l, inv_l)
+    return jnp.einsum("...ki,...kj->...ij", inv_l, inv_l,
+                      precision=lax.Precision.HIGHEST)
 
 
-def posterior_cov_stack(w, T: int, omega, sigmasq, gp_noise, dt, mask=None,
-                        ns_iters: int = 18):
+def posterior_cov_stack(w, T: int, omega, sigmasq, gp_noise, dt, mask=None):
     """Per-segment dense posterior covariances at the current kernel.
 
     S_i = (K^-1 + diag(w_i))^-1, batched over segments
@@ -133,11 +133,12 @@ def posterior_cov_stack(w, T: int, omega, sigmasq, gp_noise, dt, mask=None,
         w = w * mask
     sw = jnp.sqrt(w)  # (S, T)
     B = sw[:, :, None] * K[None] * sw[:, None, :]
-    # disallow the packed Pallas kernel: this runs under vmap (per-latent
-    # H-step) where pallas_call batching rules add no benefit
-    X = inv_one_plus_psd(B, iters=ns_iters, allow_packed=False)
+    X = inv_one_plus_psd(B)
     C = sw[:, :, None] * K[None]  # C[s,t,u] = sw[s,t] K[t,u]  (= W^1/2 K)
-    return K[None] - jnp.einsum("sut,suv,svx->stx", C, X, C)
+    # HIGHEST: a GPU f32 dot at DEFAULT runs in TF32 (measured 1.1e-2
+    # relative error here on an H100, against 1.1e-5 at f32)
+    return K[None] - jnp.einsum("sut,suv,svx->stx", C, X, C,
+                                precision=lax.Precision.HIGHEST)
 
 
 def gp_elbo(log_omega, mu, Sig, T: int, sigmasq, gp_noise, dt,
@@ -165,8 +166,9 @@ def gp_elbo(log_omega, mu, Sig, T: int, sigmasq, gp_noise, dt,
     L = jnp.linalg.cholesky(K)
     Kinv = _chol_inv(L)
     logdet = jnp.sum(jnp.log(jnp.diagonal(L)))
-    quad = jnp.einsum("st,tu,su->s", mu, Kinv, mu)
-    tr = jnp.einsum("tu,stu->s", Kinv, Sig)
+    hp = lax.Precision.HIGHEST
+    quad = jnp.einsum("st,tu,su->s", mu, Kinv, mu, precision=hp)
+    tr = jnp.einsum("tu,stu->s", Kinv, Sig, precision=hp)
     ll_local = jnp.sum(-0.5 * quad - 0.5 * tr) - logdet * mu.shape[0]
     return _psum(ll_local, dist.data)
 
@@ -185,7 +187,7 @@ def _golden_min(f, lo, hi, iters: int, polish: bool = False, grid: int = 0,
 
     ``grid >= 3`` prepends a GLOBAL stage: f is evaluated at ``grid``
     evenly spaced candidates (one call — the candidates ride f's leading
-    batch dim, so on TPU this is a single batched Cholesky, NOT ``grid``
+    batch dim, so this is a single batched Cholesky, NOT ``grid``
     sequential ones) and the golden shrinks then run inside the
     two-cell bracket around the best candidate.  Golden section alone
     assumes unimodality; the H-step objective is not unimodal (it has a
@@ -197,8 +199,8 @@ def _golden_min(f, lo, hi, iters: int, polish: bool = False, grid: int = 0,
     among candidates within ``tiebreak * |fmin|`` of the best objective,
     the first (smallest-x, for the H-step: smoothest-omega) one wins.
     Without it the argmin over near-tied basins is decided by float-scale
-    noise in f's inputs — measured: the fused Gram kernel's ~1e-5
-    posterior perturbation flipped the basin on the reference tutorial
+    noise in f's inputs — measured: a ~1e-5 E-step posterior
+    perturbation flipped the basin on the reference tutorial
     workload and moved self-tuned R^2 by 0.012, and the psum reduction
     order did the same between shardings.  Near-tied basins are
     statistically indistinguishable to the objective, so the choice must
@@ -206,11 +208,9 @@ def _golden_min(f, lo, hi, iters: int, polish: bool = False, grid: int = 0,
     conservative (Occam) side, and 1e-4 relative is far below any
     meaningful ELBO resolution while 10x above the observed noise.
 
-    (A batched k-section variant — k candidates per EVERY shrink — was
-    tried and measured 7x SLOWER on TPU: gp_elbo_stats's cost is the
-    (T, T) triangular solves, which scale with the candidate batch.
-    One batched scan up front costs ~3% EM throughput on the flagship
-    config — the cheap point on that curve.)
+    (A batched k-section variant — k candidates per EVERY shrink — costs
+    k times the (T, T) triangular solves that dominate gp_elbo_stats;
+    one batched scan up front is the cheap point on that curve.)
     """
     if grid >= 3:
         frac = jnp.arange(grid, dtype=jnp.result_type(lo)) / (grid - 1)
@@ -352,7 +352,7 @@ def _aitken_accept(x0, x1, x2, lo, hi, trust):
 
 def hstep(
     data: TrialSet, params: Params, config: Config, dist: Dist = Dist(),
-    rank: Optional[int] = None, xinv=None,
+    rank: Optional[int] = None,
 ) -> Params:
     """Hyperparameter step: per-latent bounded search on log(omega).
 
@@ -372,9 +372,8 @@ def hstep(
         A_s = G' W_s G,  X_s = (I + A_s)^{-1}
 
     — so the inner systems are the E-step's (rank x rank) Woodbury systems
-    (fused-Gram Pallas Newton-Schulz on TPU: A = G'WG is built in VMEM and
-    never materialized in HBM), and no (S, T, T) tensor is ever
-    materialized either.  The commuting identities AX = I - X and
+    (ops/spd.py:inv_one_plus_gram), and no (S, T, T) tensor is ever
+    materialized.  The commuting identities AX = I - X and
     QA = P - Q (see the inline comments) reduce the pooled statistic to
     reductions of X and P - Q — both cheaper and better conditioned than
     the direct matmul differences.  ``rank`` defaults to
@@ -416,22 +415,15 @@ def hstep(
     # ~1/eps there) and the objective degenerately rewards omega -> bound.
     wt2 = w_t / (1.0 + eps * w_t)
 
-    def F(log_om, warmX=None, warm_probe=True):
+    def F(log_om):
         # one fixed-point refinement: posterior covariance at the running
         # omega (factor space, see docstring), then a bounded search over
-        # the candidate kernel; (Z,) -> (Z,).  ``warmX`` chains the Woodbury
-        # inverses across the Aitken sequence: omega moves shrink as the
-        # fixed point converges, so later calls skip most NS iterations
-        # (the residual check in ops/spd.py guards every exit).
+        # the candidate kernel; (Z,) -> (Z,)
         G_om = _se_factor(T, jnp.exp(log_om), rank, params.dt, dtype)
         G_om = G_om.astype(dtype) * params.sigma[:, None, None]
         # A = G' diag(w~) G is needed ONLY inside the inverse (see the
-        # commuting identities below), so the fused Gram kernel applies:
-        # on TPU the (Z,S,R,R) Gram never materializes in HBM
-        X = inv_one_plus_gram(G_om, wt2, iters=config.ns_iters + 2,
-                              warm=warmX,
-                              warm_iters=max(config.ns_warm_iters, 8),
-                              probe=warm_probe)
+        # commuting identities below)
+        X = inv_one_plus_gram(G_om, wt2)
         P = wt2[..., None] * G_om[:, None]  # (Z,S,T,R): diag(w~) G
         Q = jnp.einsum("zstr,zsrq->zstq", P, X)
         sum_w = _psum(jnp.einsum("s,zst->zt", valid, wt2), dist.data)
@@ -440,9 +432,9 @@ def hstep(
         # three (Z,S,R,R)-sized batched matmuls per call, the identity
         # forms are numerically STRICTLY better: the direct differences
         # subtract two O(||A||) quantities to produce an O(1) result
-        # (f32 cancellation ~1e-7*lambda, and any NS-inverse residual is
+        # (f32 cancellation ~1e-7*lambda, and any inverse residual is
         # amplified by ||A|| ~ 1e4), while X - I and P - Q carry only the
-        # raw O(tol) inverse error.
+        # raw inverse error.
         sum_X = _psum(jnp.einsum("s,zsrq->zrq", valid, X), dist.data)
         eyeR = jnp.eye(X.shape[-1], dtype=dtype)
         sum_AXA_mA = sum_X - nseg_total * eyeR
@@ -484,7 +476,7 @@ def hstep(
         return _golden_min(obj, lo_s, hi_s, config.hyper_iters,
                            polish=config.hyper_polish,
                            grid=config.hyper_grid,
-                           tiebreak=config.hyper_tiebreak), X, C
+                           tiebreak=config.hyper_tiebreak), C
 
     # The fixed-point map log_om -> F(log_om) contracts slowly when the
     # posterior was smoothed at the current omega (ratio near 1, so
@@ -492,28 +484,19 @@ def hstep(
     # near-stationary crawl, core trajectory in gp.py:65-97).  Aitken /
     # Steffensen extrapolation jumps to the self-consistent omega:
     x0 = jnp.log(params.omega).astype(dtype)
-    # the E-step's carried inverse warm-starts the first refinement: F's
-    # system at x0 is the E-step's own Woodbury system up to the ridge
-    # fold w -> w/(1 + eps*w) (a ~eps*w relative perturbation), and the
-    # residual probe in ops/spd.py guards the rare case it isn't close
-    x1, X1, C1 = F(x0, xinv, warm_probe=False)
-    x2, X2, C2 = F(x1, X1)
+    x1, _ = F(x0)
+    x2, C2 = F(x1)
     trust = config.hyper_trust if config.hyper_refines < 3 else 0.0
     x_star = _aitken_accept(x0, x1, x2, lo + margin, hi - margin, trust)
     if config.hyper_refines >= 3:
-        # polish with one more refinement at the extrapolated point.
-        # Skipping this third F call (hyper_refines=2) was measured twice:
-        # round 2 — +7% EM throughput, -1% recovery R^2 — and round 3
-        # with the grid scan + profiled sigma: +31% EM throughput
-        # (17.5 vs 13.4 it/s), benchmark-draw quality a hair BETTER
-        # (0.9253 vs 0.9246, robust across kernels), but the independent
-        # draw dropped below the reference (0.9209 vs 0.9247: one latent
-        # collapsed to the omega floor without the polishing search).
-        # The raw Aitken point is off the F-map manifold, and whether the
-        # outer EM pulls it back is workload-dependent — so the polished
-        # 3-call default stands, and hyper_refines=2 is an explicit
-        # speed/robustness trade for users who validate their own fits.
-        log_omega, _, Cf = F(x_star, X2)
+        # polish with one more refinement at the extrapolated point.  The
+        # raw Aitken point is off the F-map manifold; without the
+        # hyper_trust cap, skipping this search once let a latent
+        # collapse to the omega floor (independent draw 0.9209 vs the
+        # reference's 0.9247).  With the cap (the default
+        # hyper_refines=2) the two-search form matches this one within
+        # the basin band (config.py).
+        log_omega, Cf = F(x_star)
     else:
         log_omega, Cf = x_star, C2
 

@@ -1,4 +1,4 @@
-"""vLGP inference engine: batched variational EM, TPU-first.
+"""vLGP inference engine: batched variational EM.
 
 Reference: ``vlgp/core.py``.  The reference runs Python triple loops —
 trials (core.py:123-126) x latent dims (core.py:76) x Newton iterations
@@ -17,11 +17,11 @@ iteration one batched XLA computation here:
     unnecessary: the Woodbury system ``I + G'WG`` has eigenvalues >= 1 and
     the Newton systems carry explicit jitter.
 
-TPU layout note: the container stores posterior tensors as (N, T, zdim)
-(user-facing), but all hot-loop math runs **latent-major** (zdim, N, T).
-With zdim ~ 5 a trailing latent axis wastes 123/128 lanes of every vector
-tile; latent-major keeps the time axis minor and turns every Woodbury
-contraction into well-shaped batched matmuls.
+Layout note: the container stores posterior tensors as (N, T, zdim)
+(user-facing), but all hot-loop math runs **latent-major** (zdim, N, T):
+with zdim ~ 5 a trailing latent axis would be the minor dimension of
+every tensor; latent-major keeps the time axis minor and turns every
+Woodbury contraction into well-shaped batched matmuls.
 
 Every public function takes an optional :class:`Dist` naming the mesh axes;
 with the default (no axes) the same code runs single-device.  Axis
@@ -31,24 +31,13 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
-import jax
 import jax.numpy as jnp
 from jax import lax
-
-import os as _os
 
 from ..config import Config, Params
 from ..data import TrialSet
 from ..ops.math import trunc_exp
-from ..ops.spd import inv_one_plus_gram, inv_one_plus_psd
-from ..ops.sweep import _sweep_pallas, sweep_fused_eligible
-from ..ops.spd import _RESID_TOL
-
-# Fused E-step sweep kernel (ops/sweep.py): the whole Eniter Newton chain
-# runs in one Pallas kernel per segment block, so the (Z, S, R, R) Woodbury
-# inverse never round-trips HBM between sweeps.  VLGP_SWEEP_FUSED=1 enables
-# it; the per-sweep composition below is the default.
-_SWEEP_FUSED = _os.environ.get("VLGP_SWEEP_FUSED", "0") == "1"
+from ..ops.spd import inv_one_plus_gram
 
 __all__ = [
     "Dist",
@@ -116,20 +105,15 @@ def _weights(U, a, dist: Dist):
     return _psum(jnp.einsum("sty,zy->zst", U, a * a), dist.model)
 
 
-def _woodbury_inverse(G, wmz, iters: int = 16, warm=None, warm_iters: int = 8):
+def _woodbury_inverse(G, wmz):
     """X = (I + G'WG)^{-1} for every (latent, segment) pair.
 
     The shared core of the E-step: the Newton direction (core.py:89) and
     the VB marginal variance (core.py:110) both need this inverse, at the
     *same* weights — computed once per sweep and carried (see estep).
-    ``warm`` is the previous sweep's inverse (weights drift slowly, so a
-    few Newton-Schulz refinements suffice; residual-checked fallback in
-    ops/spd.py).  G: (Z, T, R); wmz: (Z, S, T) -> (Z, S, R, R).
+    G: (Z, T, R); wmz: (Z, S, T) -> (Z, S, R, R).
     """
-    GtWG = jnp.einsum("ztr,zst,ztq->zsrq", G, wmz, G)
-    # I + G'WG is SPD with eigenvalues >= 1; Newton-Schulz on TPU,
-    # exact Cholesky elsewhere (ops/spd.py)
-    return inv_one_plus_psd(GtWG, iters=iters, warm=warm, warm_iters=warm_iters)
+    return inv_one_plus_gram(G, wmz)
 
 
 def _woodbury_delta(G, s, muz, wmz, X):
@@ -161,31 +145,24 @@ def _marginal_variance_from_inv(G, X):
     return jnp.einsum("ztr,zsrq,ztq->zst", G, X, G)
 
 
-def _marginal_variance(G, wmz, eps, iters: int = 16):
+def _marginal_variance(G, wmz, eps):
     """Standalone v update (used by update_v, core.py:445-471)."""
-    return _marginal_variance_from_inv(G, _woodbury_inverse(G, wmz, iters))
+    return _marginal_variance_from_inv(G, _woodbury_inverse(G, wmz))
 
 
 def estep(
     data: TrialSet, params: Params, G: jnp.ndarray, config: Config,
     niter: Optional[int] = None, dist: Dist = Dist(),
-    xinv: Optional[jnp.ndarray] = None, return_xinv: bool = False,
 ):
     """E-step: Eniter Newton sweeps over all segments and latents.
 
     Reference: ``infer_single_trial`` (core.py:22-126).  The per-latent
     coordinate loop is batched (the reference's sweep reads only the
     pre-sweep residual, so batching is exact, not an approximation).
-
-    ``xinv`` optionally warm-starts the first sweep's Woodbury inverse
-    (Z, S, R, R) — e.g. the previous EM iteration's carried inverse; pass
-    zeros when none exists (the residual probe then routes to the cold
-    start).  With ``return_xinv`` the final sweep's inverse is returned as
-    ``(data, xinv)`` for the next iteration to carry.
     """
     niter = config.Eniter if niter is None else niter
     if niter < 1:
-        return (data, xinv) if return_xinv else data
+        return data
 
     y, x, mask = data.y, data.x, data.mask
     xb = _xb(x, params.b)
@@ -212,37 +189,28 @@ def estep(
         r = _rates(eta, vz, a)
         U = jnp.where(params.poisson, r, 1.0 / _safe_noise(params.noise))
         wz = _weights(U, a, dist) * maskz
-        # fused Gram+NS+v kernel on TPU: the (Z,S,R,R) Gram never touches
-        # HBM and v comes from the VMEM-resident inverse (ops/spd.py)
+        # the inverse at the new weights serves this sweep's v and the
+        # next sweep's Newton step (ops/spd.py)
         if vb:
-            X, vz = inv_one_plus_gram(
-                G, wz, iters=config.ns_iters, warm=X,
-                warm_iters=config.ns_warm_iters, want_v=True,
-            )
+            X, vz = inv_one_plus_gram(G, wz, want_v=True)
             vz = vz * maskz
         else:
-            X = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm=X,
-                                  warm_iters=config.ns_warm_iters)
+            X = inv_one_plus_gram(G, wz)
         return muz, wz, vz, dmuz, X
 
     def core():
-        """Per-sweep composition: one fused Gram+NS kernel dispatch per
-        sweep, the (Z, S, R, R) inverse carried through HBM between them."""
+        """Sweep loop, the (Z, S, R, R) inverse carried between sweeps."""
         muz = _zmajor(data.mu)
         wz = _zmajor(data.w) * maskz
-        X0 = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm=xinv,
-                               warm_iters=config.ns_warm_iters)
-        init = (muz, wz, _zmajor(data.v), _zmajor(data.dmu), X0)
+        init = (muz, wz, _zmajor(data.v), _zmajor(data.dmu),
+                inv_one_plus_gram(G, wz))
         tol = config.estep_tol
         if tol <= 0:
             # reference-matched fixed sweep count (core.py:65 runs Eniter
             # sweeps unconditionally — its `tol` is read but never used)
             return lax.fori_loop(0, niter, sweep, init)
         # adaptive exit: stop sweeping once the Newton update stalls at
-        # its fixed-point noise floor.  Measured on the flagship config,
-        # the relative |dmu|/|mu| plateaus at ~6e-4 by sweep 6 of 25 and
-        # never improves again — the remaining 19 sweeps are pure noise
-        # recirculation (per-sweep profile in STATUS.md).  The decision
+        # its fixed-point noise floor (config.estep_tol).  The decision
         # uses DATA-psummed norms so every device in a shard_map takes
         # the same trip count (the sweep body itself contains a
         # model-axis psum, which would deadlock under divergent trips).
@@ -259,39 +227,10 @@ def estep(
         _, out = lax.while_loop(cond, body, (0, init))
         return out
 
-    if (_SWEEP_FUSED and sweep_fused_eligible(data, params, G, dist)
-            and jax.default_backend() != "cpu"):
-        # whole-E-step Pallas kernel (ops/sweep.py): every sweep's Woodbury
-        # inverse stays VMEM-resident; ``core`` (ending in an exact-Cholesky
-        # net) is both the non-TPU lowering and the residual-failure
-        # fallback.  CPU-default processes skip the trace entirely (same
-        # rationale as ops/spd.py's _GRAM_FUSED gate).
-        def fused():
-            res = _sweep_pallas(
-                y, xb, mask, a, params.noise, params.poisson, G,
-                _zmajor(data.mu), _zmajor(data.w), _zmajor(data.v), xinv,
-                niter=niter, tol=config.estep_tol,
-                dmu_bound=config.dmu_bound, ns_iters=config.ns_iters,
-                ns_warm_iters=config.ns_warm_iters, vb=vb,
-            )
-            resid = res[-1]
-            if dist.data is not None:
-                # the fallback branch contains data-axis psums, so the
-                # predicate must be uniform across the mesh or shard_map
-                # deadlocks on divergent branches
-                resid = lax.pmax(resid, dist.data)
-            ok = jnp.isfinite(resid) & (resid < _RESID_TOL)
-            return lax.cond(ok, lambda: res[:5], core)
-
-        muz, wz, vz, dmuz, X = lax.platform_dependent(
-            tpu=fused, default=core
-        )
-    else:
-        muz, wz, vz, dmuz, X = core()
-    out = data.replace(
+    muz, wz, vz, dmuz, _ = core()
+    return data.replace(
         mu=_zminor(muz), w=_zminor(wz), v=_zminor(vz), dmu=_zminor(dmuz)
     )
-    return (out, X) if return_xinv else out
 
 
 def update_w(data: TrialSet, params: Params, config: Config, dist: Dist = Dist()) -> TrialSet:
@@ -309,7 +248,7 @@ def update_v(data: TrialSet, params: Params, G, config: Config, dist: Dist = Dis
     if config.method != "VB":
         return data
     wz = _zmajor(data.w) * data.mask[None]
-    vz = _marginal_variance(G, wz, config.eps, iters=config.ns_iters) * data.mask[None]
+    vz = _marginal_variance(G, wz, config.eps) * data.mask[None]
     return data.replace(v=_zminor(vz))
 
 
@@ -471,11 +410,7 @@ def mstep(
         # adaptive exit at the Newton noise floor — the check the
         # reference's authors wrote and commented out (core.py:248-249:
         # ``norm(da) < tol * norm(a) and norm(db) < tol * norm(b)``).
-        # Measured flagship profile: relative |da|/|a| hits its ~2e-3
-        # floor by Newton iteration 4 on the first EM iteration and sits
-        # there from iteration 1 on every later EM iteration, so the
-        # fixed 25-count loop is ~90% noise recirculation (STATUS.md).
-        # The squared norms are MODEL-psummed: a/b/da/db are replicated
+        # (config.mstep_tol).  The squared norms are MODEL-psummed: a/b/da/db are replicated
         # across the data axis (their statistics are data-psummed) but
         # sharded over channels on the model axis, so a local norm would
         # give each model shard its own trip count and make the fit

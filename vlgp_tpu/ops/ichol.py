@@ -3,7 +3,7 @@
 The reference implements this as a sequential NumPy loop with greedy
 diagonal pivoting (``vlgp/math.py:76-169``).  It is the only inherently
 sequential kernel in the model, but the iteration count equals the rank
-(default 50) and each step is O(n) vector work, so on TPU we express it as a
+(default 50) and each step is O(n) vector work, so it is expressed as a
 ``lax.fori_loop`` with a fixed trip count — the whole factorization stays
 inside one XLA computation and can be vmapped over latent dimensions (each
 with its own lengthscale) and jitted together with the EM step that consumes
@@ -87,10 +87,34 @@ def ichol_gauss(n: int, omega, rank: int, dt: float = 1.0, tol: float = 1e-10):
 def ichol_gauss_batch(n: int, omega, rank: int, dt: float = 1.0):
     """vmap of :func:`ichol_gauss` over per-latent lengthscales.
 
-    omega: (zdim,) -> (zdim, n, rank).  This is the TPU analog of the
+    omega: (zdim,) -> (zdim, n, rank).  This replaces the
     reference factor cache ``params['cholesky'][length]`` (``gp.py:150-162``).
     """
     return jax.vmap(lambda w: ichol_gauss(n, w, rank, dt))(jnp.asarray(omega))
+
+
+def nystrom_factor(n: int, omega, rank: int, dt: float = 1.0,
+                   jitter: float = 2e-5):
+    """The unguarded Nystrom factor of :func:`nystrom_gauss_batch`: a
+    latent whose landmark Cholesky fails comes back non-finite."""
+    import numpy as np
+
+    omega = jnp.asarray(omega)
+    dtype = jnp.result_type(omega.dtype, jnp.float32)
+    rank = min(rank, n)
+    J = (np.arange(rank) * n) // rank  # distinct, evenly spaced
+    x = jnp.arange(n, dtype=dtype) * dt
+    xJ = x[jnp.asarray(J)]
+    om = omega.astype(dtype)[:, None, None]
+    K_nJ = jnp.exp(-om * (x[:, None] - xJ[None, :]) ** 2)  # (Z, n, R)
+    K_JJ = jnp.exp(-om * (xJ[:, None] - xJ[None, :]) ** 2)  # (Z, R, R)
+    eye = jnp.eye(rank, dtype=dtype)
+    L = jnp.linalg.cholesky(K_JJ + jitter * eye)
+    # G = K_nJ L^{-T}  (right triangular solve, batched)
+    G = lax.linalg.triangular_solve(
+        L, K_nJ, left_side=False, lower=True, transpose_a=True
+    )
+    return G
 
 
 @functools.partial(jax.jit, static_argnums=(0, 2))
@@ -113,37 +137,21 @@ def nystrom_gauss_batch(n: int, omega, rank: int, dt: float = 1.0,
     omega = 5e-2 (ichol at the same rank: ~1e-6) — the trimmed rank is
     tight exactly where the kernel is sharpest.  End-to-end this is below
     the fit's noise floor: forcing ichol on the same f32 workload moves
-    lstsq-aligned recovery R^2 by < 0.001 (measured, round 2), because
-    the E-step's own weights carry ~1e-2-scale bf16 einsum noise.  The
-    jitter floor is set by TPU's f32 blocked Cholesky, which NaNs on the
-    (near-singular) landmark kernel below ~1e-5 (CPU LAPACK survives
-    1e-8; measured).  ``ichol_gauss`` (20+ ms of sequential latency per
-    call on TPU) remains the exact/oracle path and the full-length
-    (rank << n) path, where sparse landmarks underfit.
+    lstsq-aligned recovery R^2 by < 0.001.  The jitter keeps the f32
+    Cholesky of the (near-singular) landmark kernel finite across the
+    omega box: CPU LAPACK survives 1e-8, and a blocked accelerator f32
+    Cholesky was seen to NaN below ~1e-5, so 2e-5 leaves a margin; the
+    card's cuSOLVER factor is checked finite across ``omega_bound`` by
+    ``chip_smoke.py``.  ``ichol_gauss`` (a sequential rank-step loop)
+    remains the exact/oracle path and the full-length (rank << n) path,
+    where sparse landmarks underfit.
 
     omega: (zdim,) -> (zdim, n, rank).
     """
-    import numpy as np
-
-    omega = jnp.asarray(omega)
-    dtype = jnp.result_type(omega.dtype, jnp.float32)
-    rank = min(rank, n)
-    J = (np.arange(rank) * n) // rank  # distinct, evenly spaced
-    x = jnp.arange(n, dtype=dtype) * dt
-    xJ = x[jnp.asarray(J)]
-    om = omega.astype(dtype)[:, None, None]
-    K_nJ = jnp.exp(-om * (x[:, None] - xJ[None, :]) ** 2)  # (Z, n, R)
-    K_JJ = jnp.exp(-om * (xJ[:, None] - xJ[None, :]) ** 2)  # (Z, R, R)
-    eye = jnp.eye(rank, dtype=dtype)
-    L = jnp.linalg.cholesky(K_JJ + jitter * eye)
-    # G = K_nJ L^{-T}  (right triangular solve, batched)
-    G = lax.linalg.triangular_solve(
-        L, K_nJ, left_side=False, lower=True, transpose_a=True
-    )
-    # Finite-guard (ADVICE-r2): the jitter floor sits only ~2x above the
-    # measured f32 TPU Cholesky NaN floor, and a NaN factor would poison
-    # every downstream solve *including* the NS escalate-to-exact net
-    # (which would Cholesky the same NaN operand).  Degrade to the exact
+    G = nystrom_factor(n, omega, rank, dt, jitter)
+    # Finite-guard: the jitter floor sits only ~2x above the f32
+    # Cholesky NaN floor seen on an accelerator, and a NaN factor would poison
+    # every downstream solve.  Degrade to the exact
     # pivoted-ichol factor per latent instead of NaN-ing the whole fit;
     # the cond keeps the sequential ichol off the hot path when (always,
     # in practice) the Nystrom factor is finite.

@@ -1,961 +1,61 @@
-"""Batched small-SPD inverse: the E-step's hot op, as a Pallas TPU kernel.
+"""Batched small-SPD inverses: the E-step's and H-step's hot op.
 
 The vLGP E-step and H-step need tens of thousands of independent
-(rank x rank) SPD solves per EM iteration (the Woodbury systems
+(rank x rank) SPD inverses per EM iteration (the Woodbury systems
 ``I + G'WG``, core.py:89/110, and the posterior covariances
-``(K^-1 + diag(w))^-1``, gp.py:142-145).  XLA's TPU lowering of batched
-``cholesky``/``triangular_solve`` at this size is latency-bound and
-dominates the whole fit (measured ~125 ms per E-step sweep at batch 10^4,
-rank 50 — ~80x the cost of all surrounding einsums).
-
-The production TPU path is matmul-only Newton-Schulz iteration
-(:func:`inv_one_plus_psd`), in the spirit of the inverse-free variational-GP
-literature (e.g. "Inverse-Free Sparse Variational Gaussian Processes",
-"Probabilistic Unrolling" — see PAPERS.md): on accelerators, trading a
-factorization for a few extra matmuls wins by an order of magnitude.  It
-runs as a Pallas kernel (``_ns_packed_pallas``) that packs 128 // R
-matrices into the diagonal of each 128x128 MXU tile — products of
-block-diagonal matrices stay block-diagonal, so this is exact — and keeps
-every NS iteration VMEM-resident with a single HBM round-trip per block.
-A convergence residual is computed in-kernel so warm starts can fall back
-to a cold start without an extra (slow) XLA batched matmul.
-
-An older experiment, a VMEM-resident batched Cholesky kernel
-(``_spd_inverse_kernel``: masked rank-1 updates per column, forward
-substitution for L^-1, Gram product on the MXU), is kept for reference;
-it is correct but grid-latency bound at the vLGP working set.
-
-CPU / float64 fall back to cholesky + triangular_solve (used by the f64
-oracle tests; numerics there are bit-compatible with jnp.linalg).
+``(K^-1 + diag(w))^-1``, gp.py:142-145).  Every platform computes them
+exactly: batched Cholesky and a triangular solve (cuSOLVER/cuBLAS on
+CUDA, LAPACK on the CPU).  A matmul-only Newton-Schulz route, warm-started
+from an inverse carried between sweeps, lost to it end to end on an H100
+(PERF.md), and was removed.
 """
 from __future__ import annotations
 
-import functools
-from typing import Optional
-
-import jax
 import jax.numpy as jnp
 from jax import lax
-
-try:  # Pallas is TPU-only in some builds; import lazily-safe
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAS_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAS_PALLAS = False
 
 __all__ = ["spd_inverse", "spd_solve", "inv_one_plus_psd",
            "inv_one_plus_gram"]
 
-_LANE = 64  # padded matrix side (fits rank<=64; tiles at (8, 128) f32)
-_BB = 32  # matrices per block: each (32,64,64) f32 buffer is 0.5 MB VMEM
-
-# Matmul precision for the NS iteration.  TPU's DEFAULT precision
-# multiplies in bf16: measured on a v5e, that floors the NS residual at
-# ~2.6e-2 for benign systems (so every 1e-2 residual check fails) and
-# DIVERGES the iteration outright for lambda_max ≳ 4e3 (resid -> nan).
-# HIGH (bf16x3 passes) reaches 2e-4 (lambda 1e2) / 9e-3 (lambda 1e4) —
-# inside the 1e-2 tolerance — at half the MXU passes of HIGHEST (6), and
-# the residual-check -> escalate -> exact-Cholesky net (below) covers the
-# pathological tail exactly as before.  The packed kernel is the EM hot
-# loop (~60% of device time at the flagship config), so this is a direct
-# ~2x on its dominant cost.  HIGHEST is kept for the XLA reference path
-# and the final accuracy-critical residual checks outside the kernel.
-_PREC = lax.Precision.HIGH
-_PREC_EXACT = lax.Precision.HIGHEST
-
-# Warm-start probe architecture for the packed NS path: "0" (default) =
-# probe kernel + lax.cond + refine kernel; "1" = fused single-kernel
-# probe+refine (measured slower — see the comment at the probe site).
-import os as _os
-
-_FUSED_PROBE = _os.environ.get("VLGP_FUSED_PROBE", "0") == "1"
+# a GPU f32 dot at DEFAULT precision may run in TF32 (about 3 decimal
+# digits): every product on the inverse path keeps full f32
+_HIGHEST = lax.Precision.HIGHEST
 
 
-def _spd_inverse_kernel(a_ref, out_ref):
-    A = a_ref[:]  # (BB, RP, RP) f32
-    BB, RP, _ = A.shape
-    row = lax.broadcasted_iota(jnp.int32, (RP, RP), 0)
-    col = lax.broadcasted_iota(jnp.int32, (RP, RP), 1)
-    rvec = lax.broadcasted_iota(jnp.int32, (1, RP), 1)  # (1, RP) index row
-
-    def chol_step(j, L):
-        ej = (rvec == j).astype(L.dtype)  # (1, RP) one-hot
-        # column j and pivot via one-hot masked reductions (Mosaic-friendly:
-        # no dot_general without non-contracting dims)
-        cj = jnp.sum(L * ej[:, None, :], axis=2)  # (BB, RP)
-        dj = jnp.sum(cj * ej, axis=1)  # (BB,)
-        inv_piv = lax.rsqrt(jnp.maximum(dj, 1e-30))
-        below = (rvec > j).astype(L.dtype)  # (1, RP)
-        cjb = cj * inv_piv[:, None] * below  # scaled sub-column, 0 elsewhere
-        # trailing-submatrix rank-1 update (zero outside rows,cols > j)
-        L = L - cjb[:, :, None] * cjb[:, None, :]
-        # write column j: [0 above, sqrt(dj) at j, scaled below]
-        newcol = cjb + ej * (dj * inv_piv)[:, None]
-        L = jnp.where((col == j)[None], newcol[:, :, None], L)
-        return L
-
-    L = lax.fori_loop(0, RP, chol_step, A)
-    L = jnp.where((row >= col)[None], L, 0.0)
-
-    def inv_step(j, X):
-        ej = (rvec == j).astype(L.dtype)
-        lrow = jnp.sum(L * ej[:, :, None], axis=1)  # (BB, RP) row j of L
-        diagj = jnp.sum(lrow * ej, axis=1)  # (BB,)
-        left = (rvec < j).astype(L.dtype)
-        lrow_l = lrow * left  # strictly-left entries of row j
-        acc = jnp.sum(lrow_l[:, :, None] * X, axis=1)  # (BB, RP)
-        rowj = (ej - acc) / diagj[:, None]
-        X = jnp.where((row == j)[None], rowj[:, None, :], X)
-        return X
-
-    Linv = lax.fori_loop(0, RP, inv_step, jnp.zeros_like(L))
-    out_ref[:] = jax.lax.dot_general(
-        Linv, Linv,
-        dimension_numbers=(((1,), (1,)), ((0,), (0,))),
-        preferred_element_type=Linv.dtype,
-        precision=_PREC_EXACT,
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _spd_inverse_pallas(A, interpret: bool = False):
-    """A: (B, R, R) float32 -> A^{-1}, via the VMEM-resident kernel."""
-    B, R, _ = A.shape
-    RP = max(_LANE, -(-R // 8) * 8)
-    BP = -(-B // _BB) * _BB
-    # pad to (BP, RP, RP); the padded tail/corner is identity so the
-    # factorization stays well-defined
-    eye = jnp.eye(RP, dtype=A.dtype)
-    Ap = jnp.zeros((BP, RP, RP), A.dtype) + eye
-    Ap = Ap.at[:B, :R, :R].set(A)
-    out = pl.pallas_call(
-        _spd_inverse_kernel,
-        out_shape=jax.ShapeDtypeStruct((BP, RP, RP), A.dtype),
-        grid=(BP // _BB,),
-        in_specs=[
-            pl.BlockSpec((_BB, RP, RP), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec((_BB, RP, RP), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(Ap)
-    return out[:B, :R, :R]
-
-
-def _spd_inverse_xla(A):
-    """Reference path: Cholesky + two triangular solves (any backend)."""
+def spd_inverse(A):
+    """Batched inverse of SPD matrices A (..., R, R): Cholesky + a
+    triangular solve."""
     L = jnp.linalg.cholesky(A)
     eye = jnp.broadcast_to(jnp.eye(A.shape[-1], dtype=A.dtype), A.shape)
     Linv = lax.linalg.triangular_solve(L, eye, left_side=True, lower=True)
-    return jnp.einsum("...kr,...kq->...rq", Linv, Linv, precision=_PREC_EXACT)
-
-
-# Convergence threshold on max|(I+A)X - I| for Newton-Schulz results; a
-# failed check falls back (escalated iterations, then exact Cholesky).
-#
-# This is also the ACCURACY CONTRACT of the f32 TPU path: a probe-accepted
-# warm inverse may ride at up to this residual across E-step sweeps (the
-# converged posterior then carries an O(tol)-relative bias, the same order
-# as the bf16 weight-einsum noise it already lives with).  Tightening the
-# probe gate to tol/3 was measured at -7% EM throughput with no observable
-# recovery-quality change (TPU R^2 equals CPU R^2 to 3 decimals, and
-# forcing exact factors moves tutorial R^2 by < 0.001), so 1e-2 stands.
-# Warm starts from a *different* system (H-step across the ridge fold)
-# bypass the probe entirely (probe=False) because there the just-under-
-# tolerance bias is systematic, not drift — that one cost 1% R^2.
-#
-# Measurement noise (ADVICE-r2): the probe measures the residual with the
-# same bf16x3 matmuls as the refinement, whose noise floor reaches ~9e-3
-# at condition lambda ~ 1e4 — so for ill-conditioned systems the EFFECTIVE
-# accuracy contract is ~2e-2 (tol + measurement noise), not 1e-2.
-# Re-measuring the probe at Precision.HIGHEST would pin it at 1e-2 but
-# puts an f32 matmul on the once-per-sweep hot path; the 2e-2 bound is
-# the same order as the bf16 weight-einsum noise, so we document rather
-# than pay (the tightened-gate A/B was -7% for no quality change).
-_RESID_TOL = 1e-2
-
-
-def _ns_eligible(A, force: str | None) -> bool:
-    """Whether the NS path is *allowed* for this operand (dtype/shape).
-
-    Which path actually runs is decided per *lowering platform* via
-    ``lax.platform_dependent`` — NOT ``jax.default_backend()``, which lies
-    whenever the computation executes on a non-default backend (e.g. the
-    multi-chip dry run: a CPU mesh while the default backend is TPU).
-    """
-    if force == "xla":
-        return False
-    if force in ("ns", "packed"):
-        return True
-    return _HAS_PALLAS and A.dtype == jnp.float32
-
-
-def _ns_sweep(M, X, eye, iters: int):
-    """Newton-Schulz refinement X <- X (2I - M X), ``iters`` times."""
-
-    def ns(_, X):
-        MX = jnp.einsum("...rk,...kq->...rq", M, X,
-                        preferred_element_type=M.dtype, precision=_PREC)
-        return jnp.einsum("...rk,...kq->...rq", X, 2.0 * eye - MX,
-                          preferred_element_type=M.dtype, precision=_PREC)
-
-    return lax.fori_loop(0, iters, ns, X)
-
-
-def inv_one_plus_psd(A, iters: int = 16, force: str | None = None,
-                     warm: Optional[jnp.ndarray] = None,
-                     warm_iters: int = 8, allow_packed: bool = True,
-                     probe: bool = True):
-    """(I + A)^{-1} for PSD A (..., R, R), accelerator-friendly.
-
-    On TPU this runs Newton-Schulz iterations — X <- X (2I - M X) with
-    M = I + A — which are pure batched matmuls (MXU) instead of the
-    latency-bound batched Cholesky/triangular lowering (~40x slower at the
-    vLGP working set; see module docstring).  M's eigenvalues lie in
-    [1, Lhat] with Lhat the row-sum bound, so the scaled-identity start
-    X0 = 2/(1 + Lhat) I guarantees convergence; ``iters`` doublings drive
-    the residual to Lhat-relative machine precision (quadratic: the
-    residual norm is rho^(2^iters) with rho = (Lhat-1)/(Lhat+1)).
-
-    ``warm``: an approximate inverse of a *nearby* system (e.g. last E-step
-    sweep's inverse, core.py:85-110 rebuilds the same system with slowly
-    drifting weights).  Then only ``warm_iters`` refinements run, followed
-    by a residual check; if any matrix failed to converge the whole batch
-    falls back to the cold start (lax.cond, so the fallback costs nothing
-    when not taken).
-
-    CPU / float64 use the exact Cholesky route (oracle tests).
-    """
-    R = A.shape[-1]
-
-    def xla_path():
-        return _spd_inverse_xla(A + jnp.eye(R, dtype=A.dtype))
-
-    if not _ns_eligible(A, force):
-        return xla_path()
-
-    def ns_path():
-        return _ns_auto(A, iters, force, warm, warm_iters, allow_packed,
-                        probe)
-
-    if force in ("ns", "packed"):
-        return ns_path()
-    # Auto: pick per execution platform at lowering time.  Only the branch
-    # for the platform actually compiling is lowered, so the Pallas call
-    # never reaches a CPU lowering (where it would fail).
-    return lax.platform_dependent(tpu=ns_path, default=xla_path)
-
-
-def _checked(X, resid, fallback):
-    """Accept X when its NS residual converged, else take ``fallback``."""
-    return lax.cond(
-        jnp.isfinite(resid) & (resid < _RESID_TOL), lambda: X, fallback
-    )
-
-
-def _ns_auto(A, iters, force, warm, warm_iters, allow_packed,
-             probe=True):
-    """Newton-Schulz (I+A)^{-1}, residual-checked at every exit.
-
-    Cold starts escalate: ``iters`` more refinements if the first pass
-    missed the tolerance (quadratic convergence makes one escalation cover
-    condition numbers to ~1e9), exact Cholesky as the final safety net —
-    the ADVICE-r1 fix: the production TPU path must never silently return
-    an unconverged inverse (plausible early in Poisson fits where
-    trunc_exp admits rates up to e^10).
-    """
-    R = A.shape[-1]
-
-    def xla_path():
-        return _spd_inverse_xla(A + jnp.eye(R, dtype=A.dtype))
-
-    if (allow_packed and force != "ns" and R <= 128
-            and A.dtype == jnp.float32):
-        # packed block-diagonal Pallas kernel: multiple matrices per MXU
-        # tile, all NS iterations VMEM-resident
-        shape = A.shape
-        flat = A.reshape((-1, R, R))
-
-        def cold_packed():
-            X, resid = _ns_packed_pallas(flat, iters=iters)
-
-            def escalate():
-                X2, r2 = _ns_packed_pallas(flat, iters=iters, x0=X)
-                return _checked(X2, r2, xla_path_flat)
-
-            def xla_path_flat():
-                return _spd_inverse_xla(flat + jnp.eye(R, dtype=A.dtype))
-
-            return _checked(X, resid, escalate).reshape(shape)
-
-        if warm is None:
-            return cold_packed()
-        # Check-first warm start: one residual pass (iters=0) decides
-        # whether the carried inverse is still within tolerance.  The
-        # E-step's weights drift slowly and settle as the posterior
-        # converges, so most sweeps skip the refinement entirely — the
-        # cond makes a converged sweep cost 1 matmul instead of
-        # warm_iters*2 + 1.  ``probe=False`` skips the check and always
-        # refines: for warm starts from a *different* (nearby) system —
-        # e.g. the H-step reusing the E-step's carried inverse across the
-        # ridge fold — a probe-accepted inverse can sit just under the
-        # tolerance systematically, where the unconditional refinement
-        # restores the same precision floor as a cold start at half the
-        # passes.
-        x0w = warm.astype(A.dtype).reshape(flat.shape)
-
-        def refine():
-            Xw, resid = _ns_packed_pallas(flat, iters=warm_iters, x0=x0w)
-            return _checked(Xw.reshape(shape), resid, cold_packed)
-
-        if not probe:
-            return refine()
-        if _FUSED_PROBE:
-            # Fused probe+refine: one kernel measures the carry's residual
-            # per grid block and refines only the drifted blocks — no
-            # probe dispatch, no lax.cond, no (Z,S,R,R) pass-through copy.
-            # MEASURED SLOWER than the cond architecture (6.78 vs 7.9 EM
-            # it/s at the flagship config, tiles 8 and 12 both): the
-            # per-block scalar branch defeats Mosaic's block DMA
-            # pipelining, costing more than the cond copies it removes
-            # (VERDICT-r2 weak #3 falsified by measurement — see STATUS).
-            # Kept behind VLGP_FUSED_PROBE=1 for future re-measurement.
-            Xw, resid = _ns_packed_pallas(flat, iters=warm_iters, x0=x0w,
-                                          probe_skip=True)
-            return _checked(Xw.reshape(shape), resid, cold_packed)
-        _, resid0 = _ns_packed_pallas(flat, iters=0, x0=x0w, resid_only=True)
-        return lax.cond(
-            jnp.isfinite(resid0) & (resid0 < _RESID_TOL),
-            lambda: x0w.reshape(shape),
-            refine,
-        )
-
-    eye = jnp.eye(R, dtype=A.dtype)
-    M = A + eye
-
-    def _resid(X):
-        MX = jnp.einsum("...rk,...kq->...rq", M, X,
-                        preferred_element_type=jnp.float32,
-                        precision=_PREC_EXACT)
-        return jnp.max(jnp.abs(MX - eye))
-
-    def cold():
-        lhat = jnp.max(jnp.sum(jnp.abs(M), axis=-1), axis=-1)
-        X0 = (2.0 / (1.0 + lhat))[..., None, None] * eye
-        X = _ns_sweep(M, X0, eye, iters)
-
-        def escalate():
-            X2 = _ns_sweep(M, X, eye, iters)
-            return _checked(X2, _resid(X2), lambda: _spd_inverse_xla(M))
-
-        return _checked(X, _resid(X), escalate)
-
-    if warm is None:
-        return cold()
-
-    X = _ns_sweep(M, warm.astype(M.dtype), eye, warm_iters)
-    return _checked(X, _resid(X), cold)
-
-
-def spd_inverse(A, force: str | None = None):
-    """Batched inverse of SPD matrices A (..., R, R).
-
-    force: None (auto), "pallas", "xla", "interpret" (Pallas interpreter,
-    for CPU testing of the kernel itself).
-    """
-    batch_shape = A.shape[:-2]
-    R = A.shape[-1]
-    flat = A.reshape((-1, R, R))
-    if force == "interpret":
-        out = _spd_inverse_pallas(flat, interpret=True)
-    elif force == "pallas":
-        out = _spd_inverse_pallas(flat)
-    elif force is None and _HAS_PALLAS and A.dtype == jnp.float32 and R <= _LANE:
-        # per-lowering-platform dispatch (see _ns_eligible docstring)
-        out = lax.platform_dependent(
-            tpu=lambda: _spd_inverse_pallas(flat),
-            default=lambda: _spd_inverse_xla(flat),
-        )
-    else:
-        out = _spd_inverse_xla(flat)
-    return out.reshape(batch_shape + (R, R))
+    return jnp.einsum("...kr,...kq->...rq", Linv, Linv, precision=_HIGHEST)
 
 
 def spd_solve(A, b):
     """Solve A x = b for SPD A (..., R, R) and b (..., R)."""
     X = spd_inverse(A)
-    return jnp.einsum("...rq,...q->...r", X, b)
+    return jnp.einsum("...rq,...q->...r", X, b, precision=_HIGHEST)
 
 
-# ---------------------------------------------------------------------------
-# Experimental: block-diagonal packed Newton-Schulz Pallas kernel.
-#
-# XLA executes a batched (B, R, R) matmul roughly one small matrix per MXU
-# pass, using R^2/128^2 of the systolic array (~10% at R=40).  Packing
-# 128 // R matrices into the diagonal of one 128x128 tile triples the useful
-# work per pass, and keeping the packed operands resident in VMEM across all
-# NS iterations removes the HBM round-trips between them.  Exact: products
-# of block-diagonal matrices stay block-diagonal.
-# ---------------------------------------------------------------------------
+def inv_one_plus_psd(A):
+    """(I + A)^{-1} for PSD A (..., R, R); I + A has eigenvalues >= 1."""
+    return spd_inverse(A + jnp.eye(A.shape[-1], dtype=A.dtype))
 
 
-def _make_ns_packed_kernel(R: int, gpt: int, tiles: int, iters: int,
-                           use_x0: bool, B: int, resid_only: bool = False,
-                           probe_skip: bool = False):
-    RP = 128
-
-    def body(a_ref, x0_ref, out_ref, resid_ref, mp_ref, xp_ref):
-        # a_ref: (tiles * gpt, R, R) f32; scratch mp/xp: (tiles, 128, 128)
-        A = a_ref[:].reshape(tiles, gpt, R, R)
-        eyeR = jnp.eye(R, dtype=A.dtype)
-        # tail-block masking: the grid is cdiv(B, per_block), so the last
-        # block reads past the array (undefined values).  Invalid slots get
-        # M = I (and X0 = I), for which the NS fixed point is exactly I —
-        # zero residual contribution, no host-side padding round-trips.
-        pid = pl.program_id(0)
-        tvec = lax.broadcasted_iota(jnp.int32, (tiles, 1, 1), 0)  # tile ids
-        base = pid * (tiles * gpt)
-        if use_x0:
-            X0 = x0_ref[:].reshape(tiles, gpt, R, R)
-
-        mp_ref[:] = jnp.zeros((tiles, RP, RP), A.dtype)
-        xp_ref[:] = jnp.zeros((tiles, RP, RP), A.dtype)
-        for g in range(gpt):
-            lo = g * R
-            valid_g = (base + tvec * gpt + g) < B  # (tiles, 1, 1)
-            Mg = jnp.where(valid_g, A[:, g] + eyeR, eyeR)
-            mp_ref[:, lo : lo + R, lo : lo + R] = Mg
-            if use_x0:
-                xp_ref[:, lo : lo + R, lo : lo + R] = jnp.where(
-                    valid_g, X0[:, g], eyeR
-                )
-            else:
-                # per-matrix scaled-identity start: c = 2/(1 + rowsum bound)
-                lhat = jnp.max(jnp.sum(jnp.abs(Mg), axis=-1), axis=-1)
-                c = (2.0 / (1.0 + lhat))[:, None, None]  # (tiles, 1, 1)
-                xp_ref[:, lo : lo + R, lo : lo + R] = c * eyeR
-
-        eyeP = jnp.eye(RP, dtype=A.dtype)
-
-        def _dot(P, Q):
-            return jax.lax.dot_general(
-                P, Q,
-                dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )
-
-        def _split(x):
-            hi = x.astype(jnp.bfloat16)
-            return hi, (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-
-        def matmul(P, Q):
-            # bf16x3 (= XLA Precision.HIGH, which Mosaic doesn't expose):
-            # three bf16 MXU passes instead of HIGHEST's six.  Measured NS
-            # residual floor 2e-4 (lambda 1e2) / 9e-3 (lambda 1e4), inside
-            # the 1e-2 tolerance; the residual check below still guards
-            # every exit.
-            ph, pl_ = _split(P)
-            qh, ql = _split(Q)
-            return _dot(ph, qh) + (_dot(ph, ql) + _dot(pl_, qh))
-
-        def ns(_, X):
-            MX = matmul(mp_ref[:], X)
-            return matmul(X, 2.0 * eyeP[None] - MX)
-
-        rvec = lax.broadcasted_iota(jnp.int32, (RP, RP), 0)
-        cvec = lax.broadcasted_iota(jnp.int32, (RP, RP), 1)
-        blockmask = ((rvec // R) == (cvec // R)) & (rvec < gpt * R)
-        r3 = lax.broadcasted_iota(jnp.int32, (1, 8, 128), 1)
-        c3 = lax.broadcasted_iota(jnp.int32, (1, 8, 128), 2)
-
-        def block_resid(MX):
-            # convergence residual over the block-diagonal region only
-            return jnp.max(
-                jnp.where(blockmask[None], jnp.abs(MX - eyeP[None]), 0.0)
-            )
-
-        def write(X, resid):
-            resid_ref[:] = jnp.where(
-                (r3 == 0) & (c3 == 0), resid, 0.0
-            ).astype(A.dtype)
-            if not resid_only:
-                Xr = jnp.stack(
-                    [X[:, g * R : g * R + R, g * R : g * R + R]
-                     for g in range(gpt)],
-                    axis=1,
-                )  # (tiles, gpt, R, R)
-                out_ref[:] = Xr.reshape(tiles * gpt, R, R)
-
-        if probe_skip:
-            # Fused probe + refine (VERDICT-r2 weak #3): measure the warm
-            # start's residual first and run the refinement only for grid
-            # blocks that need it.  Replaces the XLA-level probe-kernel +
-            # lax.cond + refine-kernel architecture: one dispatch, no cond
-            # pass-through copy of the (Z,S,R,R) carry, and the probe
-            # matmul is reused as the first refinement half-step.
-            X0 = xp_ref[:]
-            MX0 = matmul(mp_ref[:], X0)
-            resid0 = block_resid(MX0)
-            # NaN-safe predicate pair: a NaN residual fails `< tol`, so the
-            # negated form routes it to the refine branch (whose final
-            # residual stays NaN and trips the XLA-level _checked
-            # fallback); `resid0 >= tol` would leave BOTH branches false
-            # and the output buffers unwritten.
-            converged = resid0 < _RESID_TOL
-
-            @pl.when(converged)
-            def _():
-                write(X0, resid0)
-
-            @pl.when(jnp.logical_not(converged))
-            def _():
-                X1 = matmul(X0, 2.0 * eyeP[None] - MX0)
-                X = lax.fori_loop(0, max(iters - 1, 0), ns, X1)
-                write(X, block_resid(matmul(mp_ref[:], X)))
-
-            return
-
-        X = lax.fori_loop(0, iters, ns, xp_ref[:])
-        write(X, block_resid(matmul(mp_ref[:], X)))
-
-    if resid_only:
-        # the warm-start convergence probe: no inverse output is written,
-        # so the check pass costs one matmul and no X round-trip
-        def probe(a_ref, x0_ref, resid_ref, mp_ref, xp_ref):
-            return body(a_ref, x0_ref, None, resid_ref, mp_ref, xp_ref)
-
-        return probe
-
-    if use_x0:
-        return body
-
-    def no_x0(a_ref, out_ref, resid_ref, mp_ref, xp_ref):
-        return body(a_ref, None, out_ref, resid_ref, mp_ref, xp_ref)
-
-    return no_x0
-
-
-def _packed_geometry(B: int, R: int, tiles: int = 16):
-    # tiles=16: (16, 128, 128) f32 scratch = 1 MB per buffer.  The fused
-    # probe_skip kernel uses tiles=12: its two predicated branches BOTH
-    # count their matmul pipelines against Mosaic's 16 MB scoped-VMEM
-    # stack (measured 18.66 MB at tiles=16 — compile-time OOM at flagship
-    # scale; tiles=12 and tiles=8 both compile and run there, measured
-    # 6.78 it/s each).
-    gpt = max(1, 128 // R)
-    per_block = tiles * gpt
-    BP = -(-B // per_block) * per_block
-    return gpt, tiles, per_block, BP
-
-
-@functools.partial(
-    jax.jit, static_argnames=("iters", "interpret", "resid_only",
-                              "probe_skip")
-)
-def _ns_packed_pallas(A, iters: int = 16, x0=None, interpret: bool = False,
-                      resid_only: bool = False, probe_skip: bool = False):
-    """(I + A)^{-1} for PSD A (B, R, R) f32, R <= 128, via packed NS.
-
-    Returns (X, max_residual) with the residual measured as
-    max |(I+A)X - I| over all matrices (for the warm-start fallback).
-    With ``resid_only`` (requires x0, iters=0 typical) only the residual of
-    x0 is computed and returned as (None, resid) — one matmul, no X write.
-    With ``probe_skip`` (requires x0) each grid block first measures x0's
-    residual and skips the refinement when already converged (see the
-    kernel builder) — the returned residual is then the per-block max of
-    (accepted x0 residual | refined residual).
-    """
-    B, R, _ = A.shape
-    gpt, tiles, per_block, _ = _packed_geometry(
-        B, R, tiles=12 if probe_skip else 16
-    )
-    grid = -(-B // per_block)  # cdiv: tail block masked in-kernel
-
-    assert not (probe_skip and x0 is None)
-    kernel = _make_ns_packed_kernel(R, gpt, tiles, iters, x0 is not None, B,
-                                    resid_only=resid_only,
-                                    probe_skip=probe_skip)
-    resid_shape = jax.ShapeDtypeStruct((grid, 8, 128), jnp.float32)
-    resid_spec = pl.BlockSpec((1, 8, 128), lambda i: (i, 0, 0),
-                              memory_space=pltpu.VMEM)
-    mat_spec = pl.BlockSpec((per_block, R, R), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-    if resid_only:
-        out_shape, out_specs = resid_shape, resid_spec
-    else:
-        out_shape = (jax.ShapeDtypeStruct((B, R, R), A.dtype), resid_shape)
-        out_specs = (mat_spec, resid_spec)
-    in_specs = [mat_spec]
-    args = [A]
-    if x0 is not None:
-        in_specs.append(mat_spec)
-        args.append(x0)
-    result = pl.pallas_call(
-        kernel,
-        out_shape=out_shape,
-        grid=(grid,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        scratch_shapes=[
-            pltpu.VMEM((tiles, 128, 128), jnp.float32),
-            pltpu.VMEM((tiles, 128, 128), jnp.float32),
-        ],
-        interpret=interpret,
-    )(*args)
-    if resid_only:
-        return None, jnp.max(result[:, 0, 0])
-    out, resid = result
-    return out, jnp.max(resid[:, 0, 0])
-
-
-# ---------------------------------------------------------------------------
-# Fused Gram + Newton-Schulz kernel: X = (I + G' diag(w) G)^{-1} per
-# (latent, segment), with the Gram matrix built IN-KERNEL from the (Z, T, R)
-# prior factor and the (Z, S, T) weights.
-#
-# The E-step calls the packed NS kernel once per Newton sweep on
-# A = G'WG — a (Z, S, R, R) tensor (~64 MB at the flagship config) that XLA
-# materializes to HBM just to feed the kernel, and reads back again for the
-# VB marginal variance v = diag(G X G').  Per sweep that is ~3 full
-# (Z,S,R,R) HBM round-trips of pure data motion (the EM step is
-# bandwidth-bound: TRACE.md measures 240 GB/s sustained).  This kernel
-# instead reads the factor (40 KB) and the weight rows (2 MB) and builds
-# each block's Gram matrices in VMEM; with ``want_v`` it also emits v from
-# the VMEM-resident inverse, so the only (Z,S,R,R)-sized HBM traffic left
-# is the carried inverse itself.  The math is identical to
-# ``inv_one_plus_psd`` on the einsum-built Gram (see tests: interpret-mode
-# parity vs the dense oracle); bf16x3 matmuls throughout, residual-checked
-# at every exit exactly like ``_ns_auto``.
-# ---------------------------------------------------------------------------
-
-# Default ON (VLGP_GRAM_FUSED=0 reverts to the einsum route): the fused
-# path is at numerical parity with the plain route on-device
-# (tools/check_gram_parity.py: dX ~1e-5, dv ~5e-6, warm probe bit-exact)
-# and measures 8.47 vs 7.52 EM it/s on the flagship config (+12%: two of
-# the three per-sweep (Z,S,R,R) HBM round-trips gone).  Its ~1e-5
-# posterior perturbation once re-routed the self-tuned H-step omega
-# trajectory (R^2 0.914 fused vs 0.925-0.936 plain on the reference
-# tutorial workload) — that sensitivity was an H-step defect, fixed by
-# the windowed grid scan + smooth stagger (models/gp.py:_golden_min,
-# api.py omega init): head2head now lands 0.9239 fused vs 0.9229 plain,
-# both above the reference's 0.9212.
-_GRAM_FUSED = _os.environ.get("VLGP_GRAM_FUSED", "1") != "0"
-
-
-def _make_ns_gram_kernel(R: int, T: int, gpt: int, tiles: int, iters: int,
-                         use_x0: bool, S: int, resid_only: bool = False,
-                         want_v: bool = False):
-    RP = 128
-    n = tiles * gpt
-
-    def body(w_ref, g_ref, x0_ref, out_ref, resid_ref, v_ref, mp_ref, xp_ref):
-        Gm = g_ref[0]  # (T, R)
-        dtype = Gm.dtype
-        eyeR = jnp.eye(R, dtype=dtype)
-        pid = pl.program_id(1)
-        base = pid * n
-        tvec = lax.broadcasted_iota(jnp.int32, (tiles, 1, 1), 0)
-
-        def _split(x):
-            hi = x.astype(jnp.bfloat16)
-            return hi, (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-
-        def _dot(P, Q, dims):
-            return jax.lax.dot_general(
-                P, Q, dimension_numbers=dims,
-                preferred_element_type=jnp.float32,
-            )
-
-        def matmul(P, Q, dims=(((2,), (1,)), ((0,), (0,)))):
-            # bf16x3 (Precision.HIGH): see the packed kernel's rationale
-            ph, pl_ = _split(P)
-            qh, ql = _split(Q)
-            return _dot(ph, qh, dims) + (_dot(ph, ql, dims)
-                                         + _dot(pl_, qh, dims))
-
-        # ---- Gram matrices, VMEM-resident: A_i = G' diag(w_i) G ----
-        wfl = w_ref[0].reshape(n, T)
-        Gb = jnp.broadcast_to(Gm[None], (n, T, R))
-        Gw = wfl[:, :, None] * Gb
-        A = matmul(Gb, Gw, (((1,), (1,)), ((0,), (0,)))).reshape(
-            tiles, gpt, R, R
-        )
-        if use_x0:
-            X0 = x0_ref[0].reshape(tiles, gpt, R, R)
-
-        # ---- pack into block-diagonal 128x128 tiles (tail masked) ----
-        mp_ref[:] = jnp.zeros((tiles, RP, RP), dtype)
-        xp_ref[:] = jnp.zeros((tiles, RP, RP), dtype)
-        for g in range(gpt):
-            lo = g * R
-            valid_g = (base + tvec * gpt + g) < S  # (tiles, 1, 1)
-            Mg = jnp.where(valid_g, A[:, g] + eyeR, eyeR)
-            mp_ref[:, lo : lo + R, lo : lo + R] = Mg
-            if use_x0:
-                xp_ref[:, lo : lo + R, lo : lo + R] = jnp.where(
-                    valid_g, X0[:, g], eyeR
-                )
-            else:
-                lhat = jnp.max(jnp.sum(jnp.abs(Mg), axis=-1), axis=-1)
-                c = (2.0 / (1.0 + lhat))[:, None, None]
-                xp_ref[:, lo : lo + R, lo : lo + R] = c * eyeR
-
-        eyeP = jnp.eye(RP, dtype=dtype)
-
-        def ns(_, X):
-            MX = matmul(mp_ref[:], X)
-            return matmul(X, 2.0 * eyeP[None] - MX)
-
-        rvec = lax.broadcasted_iota(jnp.int32, (RP, RP), 0)
-        cvec = lax.broadcasted_iota(jnp.int32, (RP, RP), 1)
-        blockmask = ((rvec // R) == (cvec // R)) & (rvec < gpt * R)
-        r4 = lax.broadcasted_iota(jnp.int32, (1, 1, 8, 128), 2)
-        c4 = lax.broadcasted_iota(jnp.int32, (1, 1, 8, 128), 3)
-        validf = (base + lax.broadcasted_iota(jnp.int32, (n, 1), 0)) < S
-
-        def block_resid(MX):
-            return jnp.max(
-                jnp.where(blockmask[None], jnp.abs(MX - eyeP[None]), 0.0)
-            )
-
-        def unpack(X):
-            return jnp.stack(
-                [X[:, g * R : g * R + R, g * R : g * R + R]
-                 for g in range(gpt)],
-                axis=1,
-            ).reshape(n, R, R)
-
-        def write(X, resid):
-            resid_ref[:] = jnp.where(
-                (r4 == 0) & (c4 == 0), resid, 0.0
-            ).astype(dtype)
-            Xr = unpack(X)
-            if not resid_only:
-                out_ref[0] = Xr
-            if want_v:
-                # v_i = diag(G X_i G') = rowsum((G X_i) * G)
-                GX = matmul(Gb, Xr)
-                v = jnp.sum(GX * Gb, axis=-1)  # (n, T)
-                v_ref[0] = jnp.where(validf, v, 0.0)
-
-        if resid_only:
-            # warm-start probe: one matmul measures x0's residual; v (when
-            # requested) is emitted from x0 so the accepted branch needs no
-            # further X read
-            MX0 = matmul(mp_ref[:], xp_ref[:])
-            write(xp_ref[:], block_resid(MX0))
-            return
-
-        X = lax.fori_loop(0, iters, ns, xp_ref[:])
-        write(X, block_resid(matmul(mp_ref[:], X)))
-
-    def kernel(*refs):
-        it = iter(refs)
-        w_ref = next(it)
-        g_ref = next(it)
-        x0_ref = next(it) if use_x0 else None
-        out_ref = None if resid_only else next(it)
-        resid_ref = next(it)
-        v_ref = next(it) if want_v else None
-        mp_ref = next(it)
-        xp_ref = next(it)
-        return body(w_ref, g_ref, x0_ref, out_ref, resid_ref, v_ref,
-                    mp_ref, xp_ref)
-
-    return kernel
-
-
-def _gram_tiles(T: int, R: int, budget: int = 9 * 2**20) -> int:
-    """VMEM-aware tile count for the fused Gram kernel.
-
-    Unlike the plain packed kernel, the fused kernel holds (n, T, R)
-    temporaries (Gb, Gw, GX) in VMEM, so its footprint scales with T; at
-    full-trial lengths (T ~ 500) the fixed tiles=16 overflows Mosaic's
-    16 MB scoped-vmem stack (measured 16.57 MB at T=500, R=50).  Budgeted
-    estimate per tile: 3 scratch/MX 128x128 buffers + gpt * (3 T R
-    temporaries + weight row + two R^2 blocks) floats.  Returns 0 when
-    even one tile does not fit (caller falls back to the einsum path).
-    """
-    gpt = max(1, 128 // R)
-    per_tile = 4 * (3 * 128 * 128 + gpt * (3 * T * R + T + 2 * R * R))
-    tiles = int(max(0, min(16, budget // per_tile)))
-    # Mosaic block rule: the (per_block, T) weight/v blocks need their
-    # second-to-last dim (per_block = tiles * gpt) divisible by 8
-    while tiles > 0 and (tiles * gpt) % 8:
-        tiles -= 1
-    return tiles
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("iters", "interpret", "resid_only", "want_v"),
-)
-def _ns_gram_pallas(G, w, iters: int = 16, x0=None, interpret: bool = False,
-                    resid_only: bool = False, want_v: bool = False):
-    """Fused (I + G'diag(w)G)^{-1}: G (Z, T, R) f32, w (Z, S, T) f32.
-
-    Returns (X, max_residual, v): X is (Z, S, R, R) or None when
-    ``resid_only``; v is diag(G X G') (Z, S, T) when ``want_v`` else None
-    (from x0 when ``resid_only``).  Residual semantics match
-    :func:`_ns_packed_pallas`.
-    """
-    Z, T, R = G.shape
-    S = w.shape[1]
-    gpt, tiles, per_block, _ = _packed_geometry(S, R, tiles=_gram_tiles(T, R))
-    nblk = -(-S // per_block)  # cdiv: tail block masked in-kernel
-
-    kernel = _make_ns_gram_kernel(R, T, gpt, tiles, iters, x0 is not None, S,
-                                  resid_only=resid_only, want_v=want_v)
-    w_spec = pl.BlockSpec((1, per_block, T), lambda z, i: (z, i, 0),
-                          memory_space=pltpu.VMEM)
-    g_spec = pl.BlockSpec((1, T, R), lambda z, i: (z, 0, 0),
-                          memory_space=pltpu.VMEM)
-    x_spec = pl.BlockSpec((1, per_block, R, R), lambda z, i: (z, i, 0, 0),
-                          memory_space=pltpu.VMEM)
-    v_spec = pl.BlockSpec((1, per_block, T), lambda z, i: (z, i, 0),
-                          memory_space=pltpu.VMEM)
-    resid_spec = pl.BlockSpec((1, 1, 8, 128), lambda z, i: (z, i, 0, 0),
-                              memory_space=pltpu.VMEM)
-    resid_shape = jax.ShapeDtypeStruct((Z, nblk, 8, 128), jnp.float32)
-
-    in_specs = [w_spec, g_spec]
-    args = [w, G]  # kernel reads (w_ref, g_ref, ...) in that order
-    if x0 is not None:
-        in_specs.append(x_spec)
-        args.append(x0)
-    out_shape, out_specs = [], []
-    if not resid_only:
-        out_shape.append(jax.ShapeDtypeStruct((Z, S, R, R), G.dtype))
-        out_specs.append(x_spec)
-    out_shape.append(resid_shape)
-    out_specs.append(resid_spec)
-    if want_v:
-        out_shape.append(jax.ShapeDtypeStruct((Z, S, T), G.dtype))
-        out_specs.append(v_spec)
-
-    result = pl.pallas_call(
-        kernel,
-        out_shape=tuple(out_shape),
-        grid=(Z, nblk),
-        in_specs=in_specs,
-        out_specs=tuple(out_specs),
-        scratch_shapes=[
-            pltpu.VMEM((tiles, 128, 128), jnp.float32),
-            pltpu.VMEM((tiles, 128, 128), jnp.float32),
-        ],
-        interpret=interpret,
-    )(*args)
-
-    result = list(result)
-    X = None if resid_only else result.pop(0)
-    resid = jnp.max(result.pop(0)[:, :, 0, 0])
-    v = result.pop(0) if want_v else None
-    return X, resid, v
-
-
-def inv_one_plus_gram(G, w, iters: int = 16, force: str | None = None,
-                      warm: Optional[jnp.ndarray] = None,
-                      warm_iters: int = 8, probe: bool = True,
-                      want_v: bool = False):
-    """X = (I + G' diag(w) G)^{-1} for every (latent, segment) pair,
-    with the Gram matrix fused into the TPU kernel.
+def inv_one_plus_gram(G, w, want_v: bool = False):
+    """X = (I + G' diag(w) G)^{-1} for every (latent, segment) pair.
 
     G: (Z, T, R) low-rank prior factors; w: (Z, S, T) nonnegative weights.
     Returns X (Z, S, R, R), or (X, v) with ``want_v`` where
     v = diag(G X G') is the VB marginal posterior variance (core.py:110,
-    445-471) computed from the kernel's VMEM-resident inverse.  Used by
-    both the E-step sweeps (models/vlgp.py) and the H-step's factor-space
-    posterior refresh (models/gp.py:hstep, where the commuting identities
-    make X the only Gram-sized quantity needed).
-
-    Semantics (warm start, probe, residual-checked fallbacks) match
-    :func:`inv_one_plus_psd` on the einsum-built Gram — which is exactly
-    the fallback executed on CPU / f64 / ``force="xla"`` paths, keeping
-    the f64 oracle tests bit-compatible with the pre-fusion code.
+    445-471).  Used by both the E-step sweeps (models/vlgp.py) and the
+    H-step's factor-space posterior refresh (models/gp.py:hstep).  The
+    Gram and v products run at HIGHEST precision: a TF32 Gram would
+    perturb the system by ~1e-3 relative before any inverse is taken.
     """
-    Z, T, R = G.shape
-
-    def plain():
-        A = jnp.einsum("ztr,zst,ztq->zsrq", G, w, G)
-        X = inv_one_plus_psd(A, iters=iters, warm=warm,
-                             warm_iters=warm_iters, probe=probe,
-                             force=force if force in ("xla", "ns", "packed")
-                             else None)
-        if want_v:
-            return X, jnp.einsum("ztr,zsrq,ztq->zst", G, X, G)
-        return X
-
-    forced = force in ("gram", "interpret")
-    eligible = (
-        _HAS_PALLAS and G.dtype == jnp.float32
-        # "xla"/"ns"/"packed" force the einsum-Gram route (inv_one_plus_psd
-        # handles the requested inverse path there)
-        and force not in ("xla", "ns", "packed") and _gram_tiles(T, R) >= 1
-        and R <= 128
-        # an explicit force= always exercises the kernel; the env default
-        # only governs auto dispatch.  CPU-only processes (tests, dryrun)
-        # would trace the Pallas branch into every executable just to
-        # discard it at lowering, so auto dispatch also requires a
-        # non-CPU default backend.
-        and (forced or (_GRAM_FUSED and jax.default_backend() != "cpu"))
-    )
-    if not eligible:
-        return plain()
-
-    def fused():
-        return _gram_auto(G, w, iters, warm, warm_iters, probe, want_v,
-                          interpret=force == "interpret")
-
-    if forced:
-        return fused()
-    return lax.platform_dependent(tpu=fused, default=plain)
-
-
-def _gram_auto(G, w, iters, warm, warm_iters, probe, want_v,
-               interpret=False):
-    """Residual-checked fused-Gram NS with the `_ns_auto` fallback net:
-    cold -> escalate -> exact Cholesky; warm -> probe/refine -> cold."""
-    Z, T, R = G.shape
-
-    def pack(X, v):
-        return (X, v) if want_v else X
-
-    def kern(n_iters, x0=None, resid_only=False):
-        return _ns_gram_pallas(G, w, iters=n_iters, x0=x0,
-                               interpret=interpret, resid_only=resid_only,
-                               want_v=want_v)
-
-    def exact():
-        A = jnp.einsum("ztr,zst,ztq->zsrq", G, w, G)
-        Xe = _spd_inverse_xla(A + jnp.eye(R, dtype=G.dtype))
-        if want_v:
-            return Xe, jnp.einsum("ztr,zsrq,ztq->zst", G, Xe, G)
-        return Xe
-
-    def cold():
-        X, resid, v = kern(iters)
-
-        def escalate():
-            X2, r2, v2 = kern(iters, x0=X)
-            return _checked(pack(X2, v2), r2, exact)
-
-        return _checked(pack(X, v), resid, escalate)
-
-    if warm is None:
-        return cold()
-
-    def refine():
-        Xw, resid, vw = kern(warm_iters, x0=warm)
-        return _checked(pack(Xw, vw), resid, cold)
-
-    if not probe:
-        return refine()
-    _, resid0, v0 = kern(0, x0=warm, resid_only=True)
-    return lax.cond(
-        jnp.isfinite(resid0) & (resid0 < _RESID_TOL),
-        lambda: pack(warm, v0),
-        refine,
-    )
+    A = jnp.einsum("ztr,zst,ztq->zsrq", G, w, G, precision=_HIGHEST)
+    X = inv_one_plus_psd(A)
+    if want_v:
+        return X, jnp.einsum("ztr,zsrq,ztq->zst", G, X, G,
+                             precision=_HIGHEST)
+    return X

@@ -10,7 +10,6 @@ from __future__ import annotations
 import time
 from typing import Callable, Optional, Sequence
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
@@ -114,9 +113,6 @@ def fit_sharded(
 
     runtime = {"it": 0, "em_elapsed": []}
     params = params_r
-    from jax.sharding import PartitionSpec as P
-
-    from .mesh import _put
 
     def _trimmed_params(p):
         """Host view of the parameters with channel padding removed, for
@@ -165,11 +161,6 @@ def fit_sharded(
         return (len(e) >= 2 and runtime["it"] >= config.min_iter
                 and abs(e[-1] - e[-2]) <= config.tol * abs(e[-1]))
 
-    xinv = _put(
-        np.zeros((n_factors, segments.ntrial, G_seg.shape[-1],
-                  G_seg.shape[-1]), segments.mu.dtype),
-        mesh, P(None, "data", None, None),
-    )
     if block > 1:
         run = sharded_em_scan(mesh, config, segments, params_r, block)
         done = False
@@ -179,8 +170,8 @@ def fit_sharded(
                 mesh, config, segments, params_r, k
             )
             tic = time.perf_counter()
-            segments, params, G_seg, xinv, norms_k = step(
-                segments, params, G_seg, xinv, runtime["it"]
+            segments, params, G_seg, norms_k = step(
+                segments, params, G_seg, runtime["it"]
             )
             # ONE host sync per block: the stacked norms readback
             norms_k = {key: list(map(float, v)) for key, v in norms_k.items()}
@@ -206,8 +197,8 @@ def fit_sharded(
         for it in range(config.max_iter):
             runtime["it"] += 1
             tic = time.perf_counter()
-            segments, params, G_seg, norms, xinv = step(
-                segments, params, G_seg, xinv, it
+            segments, params, G_seg, norms = step(
+                segments, params, G_seg, it
             )
             norms = {k: float(v) for k, v in norms.items()}
             runtime["em_elapsed"].append(time.perf_counter() - tic)

@@ -1,8 +1,8 @@
 """Device mesh construction and sharding specs.
 
 The reference has no parallelism at all (SURVEY §2: single-process loops;
-an unused ``parallel: False`` flag at preprocess.py:105).  The TPU build's
-communication backend is a 2-D ``jax.sharding.Mesh``:
+an unused ``parallel: False`` flag at preprocess.py:105).  This
+package's communication backend is a 2-D ``jax.sharding.Mesh``:
 
   * ``data``  — segments/trials (the E-step is embarrassingly parallel per
     segment; M/H-step sufficient statistics are psummed over this axis);

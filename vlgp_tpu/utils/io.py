@@ -84,7 +84,9 @@ def load(path):
         z.close()
         return from_reference_result(_load_reference_object(path))
     header = json.loads(bytes(z["header"].tobytes()).decode())
-    cfg = header["config"]
+    # files from versions with since-removed fields (ns_iters, ...) load
+    cfg = {k: v for k, v in header["config"].items()
+           if k in Config.__dataclass_fields__}
     if isinstance(cfg.get("omega_bound"), list):
         cfg["omega_bound"] = tuple(cfg["omega_bound"])
     config = Config(**cfg)
